@@ -1,0 +1,439 @@
+#!/usr/bin/env python3
+"""Smoke run of the PyTorch/CUDA port on one GPU.
+
+    python3 chip_smoke.py
+
+Phases (any failure exits non-zero):
+  1. the card's name and power limit (nvidia-smi), torch and CUDA versions;
+  2. build every CUDA kernel of the panorama path from ``topo_renderer_tpu_torch/csrc``;
+  3. hold each kernel against its plain PyTorch version on the card at the
+     shapes the panorama gives it: K1 (crossing search) and K2/K4 (window
+     copies) must agree exactly, bit for bit;
+  4. drive the engine: 100 COP-90-shaped tiles (10 x 10 tiles of 1201^2
+     texels at 3", a 12001^2 mosaic), ~256 peaks, three 4096 x 1024
+     atmospheric LOD panoramas of 512 steps with labels; every frame must
+     launch K1 and K2 once, hit terrain and sky, and carry labels. A small
+     scene rendered on the card and on the CPU (plain versions) must agree;
+  5. time each kernel, its plain version and the frame with CUDA events and
+     print the ``kernels`` JSON line.
+
+The last line is ``{"ok": true, "device": {...}}``. Without CUDA, or without
+the package beside it, the script exits non-zero and prints no result.
+Terrain and peaks are synthetic, made from a fixed seed.
+"""
+
+from __future__ import annotations
+
+import json
+import subprocess
+import sys
+import time
+
+import numpy as np
+
+SEED = 1234
+HBM_BYTES_PER_S = 3.35e12  # H100 SXM HBM3 (NVIDIA data sheet)
+
+
+def log(msg: str) -> None:
+    print(msg, flush=True)
+
+
+def card_info() -> str:
+    out = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, check=True, timeout=60,
+    )
+    return out.stdout.strip().splitlines()[0]
+
+
+def cuda_ms(fn, iters: int, warmup: int = 1) -> float:
+    import torch
+
+    for _ in range(warmup):
+        fn()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    torch.cuda.synchronize()
+    start.record()
+    for _ in range(iters):
+        fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / iters
+
+
+# ---- synthetic scene ------------------------------------------------------
+
+LAT0, LON0, TILES, TEXELS = 40, 7, 10, 1201  # tiles 40N..49N x 7E..16E
+
+
+def terrain(lat, lon):
+    """Smooth ridges and valleys as a function of (lat, lon) in degrees, so
+    adjacent tiles agree on their shared seam texels."""
+    rng = np.random.default_rng(SEED)
+    h = np.full(np.broadcast(lat, lon).shape, 1400.0)
+    for k in range(1, 6):
+        fy, fx = rng.uniform(2.0, 9.0, 2) * k
+        py, px = rng.uniform(0, 2 * np.pi, 2)
+        h = h + (900.0 / k) * np.sin(fy * lat + py) * np.cos(fx * lon + px)
+    return h.astype(np.float32)
+
+
+def make_tiles(lat0=LAT0, lon0=LON0, tiles=TILES, n=TEXELS):
+    from topo_renderer_tpu_torch.data.coordinate_transform import CoordinateTransform
+    from topo_renderer_tpu_torch.geo import GeoLocation
+
+    ps = 1.0 / (n - 1)
+    out = []
+    for ty in range(tiles):
+        for tx in range(tiles):
+            lat, lon = lat0 + ty, lon0 + tx
+            lats = (lat + 1.0 - ps * np.arange(n))[:, None]
+            lons = (lon + ps * np.arange(n))[None, :]
+            out.append((
+                GeoLocation.from_coord(lat, lon),
+                terrain(lats, lons),
+                CoordinateTransform(raster_point=(0.0, 0.0), model_point=(float(lon), float(lat + 1)),
+                                    pixel_scale=(ps, ps)),
+            ))
+    return out
+
+
+def make_peaks(center_lat, center_lon, count, radius_deg, lat0, lon0, tiles):
+    """Peaks on the terrain around the camera, grouped by tile, Latin names."""
+    from topo_renderer_tpu_torch.geo import GeoLocation
+    from topo_renderer_tpu_torch.models.uniforms import PeakInstance
+    from topo_renderer_tpu_torch.ops.geometry import ecef_from_geo
+
+    rng = np.random.default_rng(SEED + 1)
+    lats = np.clip(center_lat + rng.uniform(-radius_deg, radius_deg, count), lat0 + 1e-3, lat0 + tiles - 1e-3)
+    lons = np.clip(center_lon + rng.uniform(-radius_deg, radius_deg, count), lon0 + 1e-3, lon0 + tiles - 1e-3)
+    heights = terrain(lats, lons)
+    by_tile: dict = {}
+    order = np.argsort(-heights)  # elevation-sorted, as the fetch pipeline delivers
+    for j, i in enumerate(order):
+        loc = GeoLocation.from_coord(int(np.floor(lats[i])), int(np.floor(lons[i])))
+        pos = ecef_from_geo(float(heights[i]) + 10.0, float(lons[i]), float(lats[i])).numpy()
+        by_tile.setdefault(loc, []).append(PeakInstance(position=pos, name=f"Peak {j}"))
+    return by_tile
+
+
+def camera_at(lat, lon, height_above):
+    from topo_renderer_tpu_torch.geo import GeoCoord
+    from topo_renderer_tpu_torch.models.camera import Camera
+
+    ground = float(terrain(np.array(lat), np.array(lon)))
+    return Camera().reset(GeoCoord(lat, lon), ground + height_above)
+
+
+def build_engine(device, tiles, peaks):
+    from topo_renderer_tpu_torch.render.engine import RenderEngine
+
+    engine = RenderEngine(device=device)
+    for loc, heights, transform in tiles:
+        engine.add_terrain(loc, heights, transform)
+    for loc, lst in peaks.items():
+        engine.add_peaks(loc, lst)
+    return engine
+
+
+# ---- phase 3: kernels against their plain versions -------------------------
+
+def crossing_inputs(n=512, ws=2048, h=1024):
+    """A profile like the panorama's: tan-elevation random walks with
+    spikes, normal codes as payloads, rows' tan(elevation) thresholds
+    decreasing down the image."""
+    import torch
+
+    rng = np.random.default_rng(SEED + 2)
+    e = np.cumsum(rng.normal(0, 0.01, (n, ws)), axis=0) - 0.2
+    e += (rng.random((n, ws)) < 0.03) * rng.uniform(0.05, 0.4, (n, ws))
+    e[rng.random((n, ws)) < 0.01] = -1.0e30  # samples outside the mosaic
+    a = [rng.integers(0, 1024, (n, ws)).astype(np.float32) for _ in range(3)]
+    half = 0.5 * 2 * np.pi * h / (2 * ws)
+    rows = (np.arange(h, dtype=np.float32) + 0.5) / h
+    t = np.tan(np.float32(half) - rows * np.float32(2 * half)).astype(np.float32)
+    dev = torch.device("cuda")
+    return [torch.from_numpy(x.astype(np.float32)).to(dev) for x in (e, *a)] + [torch.from_numpy(t).to(dev)]
+
+
+def crossing_bytes(e, kstar):
+    """Bytes the crossing search needs for this data: each column's profile
+    up to its last crossing (all of it where a row stays sky), the three
+    payloads at steps where some row crossed, and the six outputs."""
+    import torch
+
+    n, w = e.shape
+    h = kstar.shape[0]
+    sky = (kstar >= n).any(dim=0)
+    last = torch.where(sky, n, kstar.amax(dim=0).to(torch.int64) + 1)
+    crossed = torch.zeros((n + 1, w), dtype=torch.bool, device=e.device)
+    crossed.scatter_(0, kstar.to(torch.int64), True)
+    payload_cells = int(crossed[:n].sum())
+    return 4 * (int(last.sum()) + 3 * payload_cells + h) + 6 * 4 * h * w
+
+
+def check_crossing():
+    import torch
+
+    from topo_renderer_tpu_torch.ops import crossing as K
+
+    e, a0, a1, a2, t = crossing_inputs()
+    got = K.crossing_search(e, a0, a1, a2, t)
+    torch.cuda.synchronize()
+    want = K.crossing_search_plain(e, a0, a1, a2, t)
+    err = 0.0
+    for g, w, name in zip(got, want, ("kstar", "theta", "m_lo", "n0", "n1", "n2")):
+        if not torch.equal(g, w):
+            raise AssertionError(f"K1 {name}: {(g != w).sum().item()} elements differ from the plain version")
+        err = max(err, (g - w).abs().max().item())
+    perm = torch.randperm(t.shape[0], generator=torch.Generator().manual_seed(SEED)).to(t.device)
+    got_p = K.crossing_search(e, a0, a1, a2, t[perm].contiguous())
+    for g, w in zip(got_p, want):
+        if not torch.equal(g, w[perm]):
+            raise AssertionError("K1 with shuffled row order differs from the plain version")
+    # Off the main path: odd shapes, NaN in the profile, NaN and -inf rows.
+    odd = [x[:50, :200].contiguous() for x in (e, a0, a1, a2)]
+    odd[0][7, 3:9] = float("nan")
+    t_odd = t[::27].contiguous()
+    t_odd[[2, 20]] = torch.tensor([float("nan"), float("-inf")], device=t.device)
+    for g, w in zip(K.crossing_search(*odd, t_odd), K.crossing_search_plain(*odd, t_odd)):
+        if not torch.equal(g, w):
+            raise AssertionError("K1 differs from the plain version on odd shapes / NaN inputs")
+    ms = cuda_ms(lambda: K.crossing_search(e, a0, a1, a2, t), iters=50, warmup=3)
+    plain_ms = cuda_ms(lambda: K.crossing_search_plain(e, a0, a1, a2, t), iters=3)
+    nbytes = crossing_bytes(e, want[0])
+    log(f"K1 crossing_search: exact on N={e.shape[0]} W={e.shape[1]} H={t.shape[0]}; "
+        f"{ms:.4f} ms (plain {plain_ms:.3f} ms), {nbytes / 1e6:.2f} MB needed")
+    return dict(
+        name="crossing_search", route="cuda", source="topo_renderer_tpu_torch/csrc/crossing.cu",
+        replaces="topo_renderer_tpu/ops/pallas_crossing.py:124", max_abs_err=err, ms=ms,
+        plain_ms=plain_ms, bound_ms=1e3 * nbytes / HBM_BYTES_PER_S, bound_by="bytes", library_ms=None,
+    )
+
+
+def window_tables():
+    """The four windowed levels of the 12001^2 mosaic, with random heights
+    and packed-normal words, a fifth of them denormal patterns."""
+    import torch
+
+    g = torch.Generator(device="cuda").manual_seed(SEED)
+    tables = []
+    for h in (12001, 6000, 3000, 1500):
+        words = torch.randint(0, 1 << 30, (2, h, h), generator=g, device="cuda", dtype=torch.int32)
+        mask = torch.rand((h, h), generator=g, device="cuda") < 0.2
+        words[1] = torch.where(mask, words[1] & 0x7FFFFF, words[1])
+        words[0] = torch.rand((h, h), generator=g, device="cuda").mul_(3000.0).view(torch.int32)
+        tables.append(words.view(torch.float32))
+    return tables
+
+
+def check_window_slice():
+    import torch
+
+    from topo_renderer_tpu_torch.ops import window_slice as K
+
+    tables = window_tables()
+    wsy, wsx = 272, 512
+    rng = np.random.default_rng(SEED + 3)
+    origins = np.array(
+        [[rng.integers(0, (t.shape[1] - wsy) // 8) * 8, rng.integers(0, (t.shape[2] - wsx) // 128) * 128]
+         for t in tables], np.int32,
+    )
+    origins[-1] = (tables[-1].shape[1] - wsy + 5, 7)  # clamped start, unaligned column
+    org = torch.from_numpy(origins).cuda()
+    got = K.window_slice_multi(tables, org, wsy=wsy, wsx=wsx)
+    want = K.window_slice_multi_plain(tables, org, wsy=wsy, wsx=wsx)
+    for level, (g, w) in enumerate(zip(got, want)):
+        if not torch.equal(g.view(torch.int32), w.view(torch.int32)):
+            raise AssertionError(f"K2 level {level}: window bits differ from the plain version")
+    one = K.window_slice(tables[0], org[0], wsy=wsy, wsx=wsx)
+    if not torch.equal(one.view(torch.int32), want[0].view(torch.int32)):
+        raise AssertionError("K4: window bits differ from the plain version")
+    ms2 = cuda_ms(lambda: K.window_slice_multi(tables, org, wsy=wsy, wsx=wsx), iters=200, warmup=5)
+    plain2 = cuda_ms(lambda: K.window_slice_multi_plain(tables, org, wsy=wsy, wsx=wsx), iters=20)
+    ms4 = cuda_ms(lambda: K.window_slice(tables[0], org[0], wsy=wsy, wsx=wsx), iters=200, warmup=5)
+    plain4 = cuda_ms(lambda: K.window_slice_multi_plain(tables[:1], org[:1], wsy=wsy, wsx=wsx), iters=20)
+    win_bytes = 2 * wsy * wsx * 4
+    log(f"K2 window_slice_multi: bit-exact on 4 levels; {ms2:.4f} ms (plain {plain2:.3f} ms); "
+        f"K4 window_slice: bit-exact; {ms4:.4f} ms (plain {plain4:.3f} ms)")
+    common = dict(route="cuda", source="topo_renderer_tpu_torch/csrc/window_slice.cu",
+                  max_abs_err=0.0, bound_by="bytes", library_ms=None)
+    return [
+        dict(name="window_slice_multi", replaces="topo_renderer_tpu/ops/pallas_dma.py:68", ms=ms2,
+             plain_ms=plain2, bound_ms=1e3 * 2 * len(tables) * win_bytes / HBM_BYTES_PER_S, **common),
+        dict(name="window_slice", replaces="topo_renderer_tpu/ops/pallas_dma.py:30", ms=ms4,
+             plain_ms=plain4, bound_ms=1e3 * 2 * win_bytes / HBM_BYTES_PER_S, **common),
+    ]
+
+
+# ---- phase 4: the engine's panorama -----------------------------------------
+
+def reset_counts():
+    from topo_renderer_tpu_torch.ops import crossing, window_slice
+
+    crossing.crossing_search.launches = 0
+    window_slice.window_slice_multi.launches = 0
+    window_slice.window_slice.launches = 0
+
+
+def read_counts():
+    from topo_renderer_tpu_torch.ops import crossing, window_slice
+
+    return {
+        "crossing_search": crossing.crossing_search.launches,
+        "window_slice_multi": window_slice.window_slice_multi.launches,
+        "window_slice": window_slice.window_slice.launches,
+    }
+
+
+def frame_profile(render, top=12):
+    """Device time of one frame by kernel (torch.profiler), and the share of
+    the frame's host-clock time the device was busy."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        render()
+        torch.cuda.synchronize()
+        wall_us = 1e6 * (time.perf_counter() - t0)
+    events = [e for e in prof.key_averages() if e.device_type == torch.autograd.DeviceType.CUDA]
+    device_us = sum(e.self_device_time_total for e in events)
+    if device_us <= 0:
+        log("profile: the profiler saw no device time")
+        return
+    log(f"profile: frame {wall_us / 1e3:.2f} ms host clock, device busy {device_us / 1e3:.2f} ms "
+        f"({100 * device_us / wall_us:.1f}%), {sum(e.count for e in events)} device ops")
+    for e in sorted(events, key=lambda e: -e.self_device_time_total)[:top]:
+        log(f"  {e.self_device_time_total / 1e3:8.3f} ms  x{e.count:<4d} {e.key[:90]}")
+
+
+def main_path(frames=3):
+    import torch
+
+    from topo_renderer_tpu_torch.ops.panorama import PanoramaSpec
+
+    t0 = time.perf_counter()
+    tiles = make_tiles()
+    c_lat, c_lon = LAT0 + TILES / 2 + 0.13, LON0 + TILES / 2 + 0.21
+    peaks = make_peaks(c_lat, c_lon, 256, 0.3, LAT0, LON0, TILES)
+    engine = build_engine(None, tiles, peaks)
+    del tiles
+    log(f"scene: 100 tiles, {sum(len(v) for v in peaks.values())} peaks, made in "
+        f"{time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    mosaic = engine.mosaic
+    torch.cuda.synchronize()
+    log(f"mosaic {mosaic.shape} built on the card in {time.perf_counter() - t0:.1f} s; "
+        f"{torch.cuda.memory_allocated() / 1e9:.2f} GB allocated")
+    if mosaic.shape != (12001, 12001):
+        raise AssertionError(f"mosaic shape {mosaic.shape} != (12001, 12001)")
+
+    cam = camera_at(c_lat, c_lon, 300.0)
+    spec = PanoramaSpec.fast(4096, 1024, n_steps=512)
+    engine.render_panorama(cam, spec, fog="atmosphere")  # first frame: allocator warm-up
+    torch.cuda.synchronize()
+    reset_counts()
+    times = []
+    for i in range(frames):
+        before = read_counts()
+        t0 = time.perf_counter()
+        res = engine.render_panorama(cam, spec, fog="atmosphere")
+        torch.cuda.synchronize()
+        times.append(1e3 * (time.perf_counter() - t0))
+        after = read_counts()
+        for k in ("crossing_search", "window_slice_multi"):
+            if after[k] - before[k] != 1:
+                raise AssertionError(f"frame {i}: {k} launched {after[k] - before[k]} times, not once")
+        hit = float(res.hit.mean())
+        colors = len(np.unique(res.color.reshape(-1, 3), axis=0))
+        n_labels = sum(len(v) for v in res.visible_labels.values())
+        if res.color.shape != (1024, 4096, 3) or not np.isfinite(res.color_linear).all():
+            raise AssertionError(f"frame {i}: bad color output")
+        if not 0.0 < hit < 1.0 or colors <= 200 or n_labels < 1:
+            raise AssertionError(f"frame {i}: hit {hit:.3f}, {colors} colours, {n_labels} labels")
+        log(f"frame {i}: {times[-1]:.1f} ms host clock, hit {hit:.3f}, {colors} colours, {n_labels} labels")
+    counts = read_counts()
+    frame_ms = cuda_ms(lambda: engine.render_panorama(cam, spec, fog="atmosphere"), iters=5)
+    log(f"frame (CUDA events, 5 frames): {frame_ms:.2f} ms")
+    frame_profile(lambda: engine.render_panorama(cam, spec, fog="atmosphere"))
+    del engine, mosaic
+    torch.cuda.empty_cache()
+    return counts, frame_ms
+
+
+def small_scene_agreement():
+    """One small scene on the card and on the CPU (plain versions): the
+    same frame up to float rounding. Dither seeds hash world positions, so
+    an ulp of difference changes a pixel's dither; the check holds hit masks
+    and depth, which do not hash."""
+    import torch
+
+    from topo_renderer_tpu_torch.ops.panorama import PanoramaSpec
+
+    tiles = make_tiles(lat0=46, lon0=11, tiles=2, n=301)
+    peaks = make_peaks(47.0, 12.0, 16, 0.1, 46, 11, 2)
+    cam = camera_at(47.0, 12.0, 300.0)
+    spec = PanoramaSpec.fast(512, 128, n_steps=256)
+    res = {}
+    for dev in ("cuda", "cpu"):
+        engine = build_engine(dev, tiles, peaks)
+        res[dev] = engine.render_panorama(cam, spec, fog="atmosphere")
+    g, c = res["cuda"], res["cpu"]
+    hit_agree = float((g.hit == c.hit).mean())
+    both = g.hit & c.hit
+    rel = np.abs(g.depth - c.depth)[both].max() if both.any() else 0.0
+    if hit_agree < 0.99 or rel > 1e-3:
+        raise AssertionError(f"small scene: card vs CPU hit agreement {hit_agree:.4f}, depth diff {rel:.2e}")
+    n_g, n_c = (sum(len(v) for v in r.visible_labels.values()) for r in (g, c))
+    log(f"small scene: card vs CPU hit agreement {hit_agree:.4f}, max depth diff {rel:.2e}, "
+        f"labels {n_g} / {n_c}")
+    torch.cuda.empty_cache()
+
+
+def main() -> int:
+    try:
+        import torch
+    except ImportError:
+        print("chip_smoke: torch is not installed", file=sys.stderr)
+        return 2
+    if not torch.cuda.is_available():
+        print("chip_smoke: CUDA is not available; this script runs on the GPU", file=sys.stderr)
+        return 2
+    try:
+        from topo_renderer_tpu_torch import cuda_build
+    except ImportError:
+        print("chip_smoke: run from the repository root (topo_renderer_tpu_torch not found)",
+              file=sys.stderr)
+        return 2
+
+    card = card_info()
+    log(f"card: {card}; torch {torch.__version__}, CUDA {torch.version.cuda}")
+
+    t0 = time.perf_counter()
+    cuda_build.build_all()
+    log(f"kernels built in {time.perf_counter() - t0:.1f} s")
+    for name, text in cuda_build.build_log.items():
+        for line in text.splitlines():
+            if "registers" in line or "spill" in line:
+                log(f"  {name}: {line.strip()}")
+
+    kernels = [check_crossing(), *check_window_slice()]
+    torch.cuda.empty_cache()
+    small_scene_agreement()
+    counts, frame_ms = main_path()
+    for k in kernels:
+        k["launches"] = counts[k["name"]]
+    order = ("name", "route", "source", "replaces", "launches", "max_abs_err", "ms", "plain_ms",
+             "bound_ms", "bound_by", "library_ms")
+    log(f"frame: {frame_ms:.2f} ms (CUDA events)")
+    print(json.dumps({"kernels": [{key: k[key] for key in order} for k in kernels]}), flush=True)
+    print(card, flush=True)
+    print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
+                                             "count": torch.cuda.device_count()}}), flush=True)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -1,0 +1,90 @@
+"""The port stands alone: no JAX, no JAX package, CUDA by default.
+
+`topo_renderer_tpu_torch` (and `chip_smoke.py`, which drives it on the
+card) must import neither `jax` nor anything of `topo_renderer_tpu`: the
+card's machine runs the port without JAX. Checked twice: in a fresh
+interpreter through `sys.modules`, and statically over every source file.
+"""
+
+import ast
+import pathlib
+import subprocess
+import sys
+
+import numpy as np
+import pytest
+import torch
+
+import topo_renderer_tpu_torch
+from topo_renderer_tpu_torch.data.coordinate_transform import CoordinateTransform
+from topo_renderer_tpu_torch.geo import GeoCoord, GeoLocation
+from topo_renderer_tpu_torch.models.camera import Camera
+from topo_renderer_tpu_torch.ops import crossing, window_slice
+from topo_renderer_tpu_torch.ops.panorama import PanoramaSpec
+from topo_renderer_tpu_torch.render.engine import RenderEngine
+
+ROOT = pathlib.Path(__file__).resolve().parent.parent
+PKG = ROOT / "topo_renderer_tpu_torch"
+FORBIDDEN = {"jax", "jaxlib", "topo_renderer_tpu"}
+
+
+def _sources():
+    return sorted(PKG.rglob("*.py")) + [ROOT / "chip_smoke.py"]
+
+
+def test_no_forbidden_module_after_import():
+    code = (
+        "import importlib, pkgutil, sys\n"
+        "import topo_renderer_tpu_torch as p\n"
+        "for m in pkgutil.walk_packages(p.__path__, p.__name__ + '.'):\n"
+        "    importlib.import_module(m.name)\n"
+        "import chip_smoke\n"
+        f"bad = sorted(m for m in sys.modules if m.split('.')[0] in {sorted(FORBIDDEN)!r})\n"
+        "print(len(sys.modules), bad)\n"
+    )
+    out = subprocess.run(
+        [sys.executable, "-c", code], cwd=ROOT, capture_output=True, text=True, timeout=120, check=True
+    ).stdout.split()
+    assert int(out[0]) > 50
+    assert out[1:] == ["[]"], out
+
+
+@pytest.mark.parametrize("path", _sources(), ids=lambda p: str(p.relative_to(ROOT)))
+def test_no_forbidden_import_statement(path):
+    for node in ast.walk(ast.parse(path.read_text(), filename=str(path))):
+        if isinstance(node, ast.Import):
+            names = [a.name for a in node.names]
+        elif isinstance(node, ast.ImportFrom) and node.level == 0:
+            names = [node.module]
+        else:
+            continue
+        for name in names:
+            assert name.split(".")[0] not in FORBIDDEN, f"{path}:{node.lineno} imports {name}"
+
+
+def test_engine_needs_cuda_by_default(monkeypatch):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        RenderEngine()
+    with pytest.raises(RuntimeError, match="CUDA"):
+        topo_renderer_tpu_torch.resolve_device(None)
+
+
+def test_cpu_path_launches_no_kernel():
+    n, span = 65, 0.03
+    ps = span / (n - 1)
+    ys, xs = np.mgrid[0:n, 0:n] / (n - 1)
+    heights = (1500 + 400 * np.sin(5 * xs) * np.cos(4 * ys)).astype(np.float32)
+    engine = RenderEngine(device="cpu")
+    engine.add_terrain(
+        GeoLocation.from_coord(47, 11), heights,
+        CoordinateTransform((0.0, 0.0), (11.0, 47.0 + span), (ps, ps)),
+    )
+    for f in (crossing.crossing_search, window_slice.window_slice_multi, window_slice.window_slice):
+        f.launches = 0
+    cam = Camera().reset(GeoCoord(47.0 + span / 2, 11.0 + span / 4), 2300.0)
+    res = engine.render_panorama(cam, PanoramaSpec.fast(64, 16, n_steps=64), fog="atmosphere")
+    assert res.color.shape == (16, 64, 3)
+    assert res.hit.any()
+    assert (crossing.crossing_search.launches, window_slice.window_slice_multi.launches,
+            window_slice.window_slice.launches) == (0, 0, 0)

@@ -1,0 +1,472 @@
+"""Scene model: terrain tiles assembled into a device-resident mosaic.
+
+Port of `topo_renderer_tpu/models/scene.py`. Adjacent COP-90 tiles share
+their seam row/column, so all loaded tiles become one mosaic array; tile
+identity survives as a per-texel owner index that applies each tile's own
+normal->world rotation (`src/render/data.rs:120-127`).
+
+``build_mosaic`` assembles the raw heights on the host (numpy, as the JAX
+package does) and builds every derived table on the engine's device in
+PyTorch (:func:`_device_mosaic_tables`, the JAX package's device build):
+normals, packed attribute rows, the average and dilated-max mip pyramids,
+the 2-D window tables and the per-cell corner rows.
+
+Packed normals are 10-bit codes in 32-bit words that travel bitcast to
+float32 (`attr_packed_flat[:, 1]`, `win_attr_2d[l][1]`, the last four
+columns of `cell_heights_flat`). Words with a z code below 8 are float32
+denormals, so they are built as ``torch.int32`` and reinterpreted with
+``.view(torch.float32)``; no float arithmetic ever touches them.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Any, Mapping, Sequence
+
+import numpy as np
+import torch
+
+from topo_renderer_tpu_torch.data.coordinate_transform import CoordinateTransform
+from topo_renderer_tpu_torch.geo import GeoLocation
+from topo_renderer_tpu_torch.models.uniforms import normal_to_world_rotation
+from topo_renderer_tpu_torch.ops.normals import compute_normals_soa
+
+# Texels outside any loaded tile carry this height: no ray can hit a
+# triangle with a poisoned corner (`terrain_renderer.rs:361-363`).
+POISON_HEIGHT = -1.0e12
+
+
+def pack_normals(normals_world: np.ndarray) -> np.ndarray:
+    """Pack world-space normals ``[..., 3]`` into 10-bit-per-channel uint32
+    words (host helper, as in the JAX package)."""
+    enc = np.round(np.clip(0.5 * (normals_world + 1.0), 0.0, 1.0) * 1023.0).astype(np.uint32)
+    return enc[..., 0] | (enc[..., 1] << 10) | (enc[..., 2] << 20)
+
+
+def unpack_normals(packed: torch.Tensor):
+    """Packed words (int32, or float32 carrying the bits) -> three decoded
+    float planes."""
+    if packed.dtype == torch.float32:
+        packed = packed.view(torch.int32)
+    nx = 2.0 * ((packed & 0x3FF).to(torch.float32) / 1023.0) - 1.0
+    ny = 2.0 * (((packed >> 10) & 0x3FF).to(torch.float32) / 1023.0) - 1.0
+    nz = 2.0 * (((packed >> 20) & 0x3FF).to(torch.float32) / 1023.0) - 1.0
+    return nx, ny, nz
+
+
+@dataclasses.dataclass
+class TerrainTile:
+    """One decoded DEM tile on the host (`background_runner.rs:267-269`)."""
+
+    location: GeoLocation
+    heights: np.ndarray  # f32[H, W], rows north -> south
+    transform: CoordinateTransform
+
+    @property
+    def size(self) -> tuple[int, int]:
+        return (self.heights.shape[1], self.heights.shape[0])
+
+
+class MosaicHostData:
+    """Host bookkeeping (valid mask, cell ownership, tile rotations)."""
+
+    def __init__(self, valid, cell_tile, tile_rot):
+        self.valid = valid
+        self.cell_tile = cell_tile
+        self.tile_rot = tile_rot
+
+
+@dataclasses.dataclass(frozen=True)
+class TerrainMosaic:
+    """Device-resident stitched terrain; the JAX package's fields, one for
+    one. Raster<->model mapping: lon = gx * pixel_scale[0] + model_point[0],
+    lat = -gy * pixel_scale[1] + model_point[1]."""
+
+    heights_flat: Any  # f32[Hm*Wm], POISON_HEIGHT outside valid tiles
+    attr_packed_flat: Any  # f32[Hm*Wm, 2]: (height, bitcast(normal)) rows
+    cell_heights_flat: Any  # f32[Hm*Wm, 8]: corner heights NW, NE, SW, SE,
+    # then the corners' bitcast packed normals; [1, 8] zeros when disabled
+    has_cell_table: bool
+    shape: tuple  # (Hm, Wm)
+    mip_heights_flat: tuple  # per-level flat f32 height pyramids (level 1..)
+    mip_attr_flat: tuple  # per-level packed (height, normal) rows (level 1..)
+    mip_hmax_flat: tuple  # per-level dilated max-height bounds (level 1..)
+    mip_shapes: tuple
+    host: MosaicHostData
+    model_point: Any  # f32[2] (lon, lat) of texel (0, 0)
+    pixel_scale: Any  # f32[2] degrees per texel
+    hmax: Any  # f32 scalar
+    bound_center: Any  # f32[3] ECEF bounding-sphere centre
+    bound_radius: Any  # f32 scalar
+    # Per-level 2-D copies f32[2, h_l, w_l] (plane 0 heights, plane 1 packed
+    # normal bits); None below the build's window_table_min.
+    win_attr_2d: tuple = ()
+    mip_hmax_raw_flat: tuple = ()  # streaming builds only (not ported yet)
+    sharded_rows: tuple = ()  # multi-device builds only (not ported yet)
+    cell_sharded: bool = False  # multi-device builds only (not ported yet)
+    texel_m: float = 92.6  # base texel size hint, 3 significant digits
+
+    @property
+    def device(self) -> torch.device:
+        return self.heights_flat.device
+
+    @property
+    def heights(self):
+        return self.heights_flat.reshape(self.shape)
+
+
+# The mosaic's tensor fields: what `mosaic_from_arrays` carries across.
+ARRAY_FIELDS = (
+    "heights_flat",
+    "attr_packed_flat",
+    "cell_heights_flat",
+    "mip_heights_flat",
+    "mip_attr_flat",
+    "mip_hmax_flat",
+    "model_point",
+    "pixel_scale",
+    "hmax",
+    "bound_center",
+    "bound_radius",
+    "win_attr_2d",
+)
+
+
+def _texel_m_hint(ps_y_deg: float) -> float:
+    """Metres per texel from the latitude pixel scale (meridian arc
+    ~111,132 m/degree), 3 significant digits."""
+    return float(f"{abs(float(ps_y_deg)) * 111_132.0:.3g}")
+
+
+def _pool_mean(c: torch.Tensor) -> torch.Tensor:
+    # Mip pooling order: the JAX build sums 0.25*((a+b)+(c+d))
+    # (`scene.py:397`); another association changes low bits and the mips
+    # stop matching exactly.
+    return 0.25 * ((c[0::2, 0::2] + c[0::2, 1::2]) + (c[1::2, 0::2] + c[1::2, 1::2]))
+
+
+def _dilate3(pooled: torch.Tensor) -> torch.Tensor:
+    """3x3 max over an edge-padded plane."""
+    h2, w2 = pooled.shape
+    p = torch.cat([pooled[:1], pooled, pooled[-1:]], dim=0)
+    p = torch.cat([p[:, :1], p, p[:, -1:]], dim=1)
+    dil = pooled
+    for dy in (0, 1, 2):
+        for dx in (0, 1, 2):
+            dil = torch.maximum(dil, p[dy : dy + h2, dx : dx + w2])
+    return dil
+
+
+def _shifts(x: torch.Tensor):
+    """x and its edge-clamped east, south and south-east neighbours."""
+    e = torch.cat([x[:, 1:], x[:, -1:]], dim=1)
+    s_ = torch.cat([x[1:], x[-1:]], dim=0)
+    se = torch.cat([s_[:, 1:], s_[:, -1:]], dim=1)
+    return x, e, s_, se
+
+
+def _device_mosaic_tables(
+    heights_raw: torch.Tensor,
+    valid: torch.Tensor,
+    owner: torch.Tensor,
+    rot_flat: torch.Tensor,
+    geo: torch.Tensor,
+    *,
+    quantize_normals: bool,
+    correct_axes: bool,
+    exact_tables: bool,
+    window_table_min: int,
+):
+    """Derived mosaic tables on ``heights_raw.device`` (port of
+    `scene.py:310-479`; the reference's GPU normal compute shaders).
+
+    Args: ``heights_raw`` f32[H, W] with zeros outside ``valid``; ``owner``
+    int64[H, W] owning-tile index; ``rot_flat`` f32[T*9] row-major tile
+    rotations; ``geo`` f32[4] = (lon_nw, lat_nw, ps_x, ps_y).
+    """
+    lon_nw, lat_nw, ps_x, ps_y = geo[0], geo[1], geo[2], geo[3]
+    poison = torch.tensor(POISON_HEIGHT, dtype=torch.float32, device=heights_raw.device)
+    heights_p = torch.where(valid, heights_raw, poison)
+    rot_cols = [rot_flat[k::9] for k in range(9)]  # [T] per matrix entry
+
+    def enc10(c):
+        return torch.round(torch.clamp(0.5 * (c + 1.0), 0.0, 1.0) * 1023.0).to(torch.int32)
+
+    def world_packed(h_for_normals, v, owner_l, level):
+        s = float(2**level)
+        off = (s - 1.0) / 2.0
+        nx, ny, nz = compute_normals_soa(
+            h_for_normals,
+            (ps_x * s, ps_y * s),
+            raster_point=(0.0, 0.0),
+            model_point=(lon_nw + ps_x * off, lat_nw - ps_y * off),
+            valid=v,
+            quantize=quantize_normals,
+            correct_axes=correct_axes,
+        )
+
+        def R(i, j):
+            return rot_cols[3 * i + j][owner_l]
+
+        wx = R(0, 0) * nx + R(0, 1) * ny + R(0, 2) * nz
+        wy = R(1, 0) * nx + R(1, 1) * ny + R(1, 2) * nz
+        wz = R(2, 0) * nx + R(2, 1) * ny + R(2, 2) * nz
+        # 30-bit codes fit int32 with the sign bit clear.
+        packed = enc10(wx) | (enc10(wy) << 10) | (enc10(wz) << 20)
+        # Invalid texels pack 0 whatever tile the borrow-clamp assigns them.
+        return torch.where(v, packed, 0)
+
+    def pack_rows(h2d, packed2d):
+        return torch.stack([h2d.reshape(-1), packed2d.view(torch.float32).reshape(-1)], dim=-1)
+
+    def win2d(h2d, packed2d):
+        return torch.stack([h2d, packed2d.view(torch.float32)], dim=0)
+
+    packed0 = world_packed(heights_raw, valid, owner, 0)
+
+    mips = []
+    cur = heights_p
+    while min(cur.shape) >= 8:
+        h2, w2 = cur.shape[0] // 2, cur.shape[1] // 2
+        pooled = torch.maximum(_pool_mean(cur[: 2 * h2, : 2 * w2]), poison)
+        pooled = torch.where(pooled < 0.1 * POISON_HEIGHT, poison, pooled)
+        mips.append(pooled)
+        cur = pooled
+
+    mip_attrs = []
+    win_tables = [win2d(heights_p, packed0) if heights_raw.numel() > window_table_min else None]
+    for level, mh in enumerate(mips, start=1):
+        s = 2**level
+        h_l, w_l = mh.shape
+        v_l = mh > 0.5 * POISON_HEIGHT
+        owner_l = owner[::s, ::s][:h_l, :w_l]
+        packed_l = world_packed(torch.where(v_l, mh, 0.0), v_l, owner_l, level)
+        mip_attrs.append(pack_rows(mh, packed_l))
+        win_tables.append(win2d(mh, packed_l) if mh.numel() > window_table_min else None)
+
+    # Dilated max pyramid, folding odd remainder rows/cols into the last
+    # texel's bound.
+    mip_hmax = []
+    cur = heights_p
+    for mh in mips:
+        h2, w2 = mh.shape
+        c = cur[: 2 * h2, : 2 * w2]
+        pooled = torch.maximum(
+            torch.maximum(c[0::2, 0::2], c[0::2, 1::2]),
+            torch.maximum(c[1::2, 0::2], c[1::2, 1::2]),
+        )
+        if cur.shape[0] > 2 * h2:
+            er = cur[2 * h2 :, : 2 * w2]
+            em = torch.maximum(er[:, 0::2], er[:, 1::2]).amax(dim=0)
+            pooled[-1] = torch.maximum(pooled[-1], em)
+        if cur.shape[1] > 2 * w2:
+            ec = cur[: 2 * h2, 2 * w2 :]
+            em = torch.maximum(ec[0::2], ec[1::2]).amax(dim=1)
+            pooled[:, -1] = torch.maximum(pooled[:, -1], em)
+        mip_hmax.append(_dilate3(pooled))
+        cur = pooled
+
+    if exact_tables:
+        # Rows carry the 4 corner heights and the 4 corners' packed normals.
+        planes = _shifts(heights_p) + _shifts(packed0.view(torch.float32))
+        cell = torch.stack([p.reshape(-1) for p in planes], dim=-1)
+        del planes
+    else:
+        cell = torch.zeros((1, 8), dtype=torch.float32, device=heights_raw.device)
+
+    return dict(
+        heights=heights_p.reshape(-1),
+        attr=pack_rows(heights_p, packed0),
+        cell=cell,
+        mips=tuple(m.reshape(-1) for m in mips),
+        mip_attrs=tuple(mip_attrs),
+        mip_hmax=tuple(m.reshape(-1) for m in mip_hmax),
+        win_attr_2d=tuple(win_tables),
+    )
+
+
+def _resample_tile_lon(tile: TerrainTile, ps_fine: float, lon_anchor: float) -> TerrainTile:
+    """Linearly resample a tile's rows onto the mosaic's fine longitude
+    lattice (COP-90 bands above 50°N have wider longitude spacing)."""
+    t = tile.transform
+    ps_c = t.pixel_scale[0]
+    lon0, lat0 = t.to_model((0.0, 0.0))
+    lon_last = lon0 + ps_c * (tile.heights.shape[1] - 1)
+    k0 = int(np.ceil((lon0 - lon_anchor) / ps_fine - 1e-6))
+    k1 = int(np.floor((lon_last - lon_anchor) / ps_fine + 1e-6))
+    lons = lon_anchor + ps_fine * np.arange(k0, k1 + 1)
+    coarse_coords = (lons - lon0) / ps_c
+    i0 = np.clip(np.floor(coarse_coords).astype(int), 0, tile.heights.shape[1] - 2)
+    frac = (coarse_coords - i0).astype(np.float32)
+    resampled = (tile.heights[:, i0] * (1.0 - frac) + tile.heights[:, i0 + 1] * frac).astype(
+        np.float32
+    )
+    return TerrainTile(
+        location=tile.location,
+        heights=resampled,
+        transform=CoordinateTransform(
+            raster_point=(0.0, 0.0),
+            model_point=(float(lons[0]), float(lat0)),
+            pixel_scale=(float(ps_fine), float(t.pixel_scale[1])),
+        ),
+    )
+
+
+def _mip_shapes(h_m: int, w_m: int) -> tuple:
+    shapes = []
+    while min(h_m, w_m) >= 8:
+        h_m, w_m = h_m // 2, w_m // 2
+        shapes.append((h_m, w_m))
+    return tuple(shapes)
+
+
+def build_mosaic(
+    tiles: Sequence[TerrainTile],
+    quantize_normals: bool = True,
+    correct_axes: bool = False,
+    exact_tables: bool = True,
+    window_table_min: int = 262_144,
+    device=None,
+) -> TerrainMosaic:
+    """Assemble decoded tiles into one stitched mosaic on ``device``.
+
+    Host assembly as in the JAX package (`scene.py:542-657`): tiles share a
+    latitude pixel scale, coarser longitude bands are resampled onto the
+    finest lattice, texels land on a common grid with seam texels written
+    once, and each texel's rotation comes from the tile owning its cell.
+    The derived tables are then built on the device.
+    """
+    from topo_renderer_tpu_torch import resolve_device
+
+    device = resolve_device(device)
+    if not tiles:
+        raise ValueError("build_mosaic needs at least one tile")
+
+    ps_y = tiles[0].transform.pixel_scale[1]
+    for t in tiles:
+        if not np.isclose(t.transform.pixel_scale[1], ps_y, rtol=1e-5):
+            raise ValueError("mixed latitude pixel scales are not supported")
+    ps_x = min(t.transform.pixel_scale[0] for t in tiles)
+    lon_nw = min(t.transform.to_model((0.0, 0.0))[0] for t in tiles)
+    lat_nw = max(t.transform.to_model((0.0, 0.0))[1] for t in tiles)
+
+    native_res = [bool(np.isclose(t.transform.pixel_scale[0], ps_x, rtol=1e-5)) for t in tiles]
+    tiles = [
+        t if native else _resample_tile_lon(t, ps_x, lon_nw)
+        for t, native in zip(tiles, native_res)
+    ]
+
+    offsets = []
+    for t in tiles:
+        lon0, lat0 = t.transform.to_model((0.0, 0.0))
+        ox = round((lon0 - lon_nw) / ps_x)
+        oy = round((lat_nw - lat0) / ps_y)
+        if abs((lon0 - lon_nw) / ps_x - ox) > 0.02 or abs((lat_nw - lat0) / ps_y - oy) > 0.02:
+            raise ValueError("tile grids are not aligned to a common raster")
+        offsets.append((ox, oy))
+
+    h_m = max(oy + t.heights.shape[0] for (ox, oy), t in zip(offsets, tiles))
+    w_m = max(ox + t.heights.shape[1] for (ox, oy), t in zip(offsets, tiles))
+
+    heights = np.zeros((h_m, w_m), np.float32)
+    valid = np.zeros((h_m, w_m), bool)
+    cell_tile = np.full((h_m, w_m), -1, np.int32)
+    rotations = np.zeros((len(tiles), 3, 3), np.float32)
+
+    # Resampled tiles first so native data wins shared seam texels, then
+    # the reference's BTreeMap location order.
+    order = sorted(range(len(tiles)), key=lambda i: (1 if native_res[i] else 0, tiles[i].location))
+    for idx in order:
+        t = tiles[idx]
+        ox, oy = offsets[idx]
+        th, tw = t.heights.shape
+        heights[oy : oy + th, ox : ox + tw] = t.heights
+        valid[oy : oy + th, ox : ox + tw] = True
+        cell_tile[oy : oy + th - 1, ox : ox + tw - 1] = idx
+        rotations[idx] = normal_to_world_rotation(
+            t.transform.model_point[0], t.transform.model_point[1]
+        )[:3, :3].numpy()
+
+    # The last row/column have no own cell: they borrow the adjacent cell's
+    # owner.
+    owner = cell_tile[
+        np.minimum(np.arange(h_m), h_m - 2)[:, None],
+        np.minimum(np.arange(w_m), w_m - 2)[None, :],
+    ]
+    owner = np.where(owner < 0, 0, owner)
+
+    hmax = float(heights[valid].max()) if valid.any() else 0.0
+
+    lon_se = lon_nw + ps_x * (w_m - 1)
+    lat_se = lat_nw - ps_y * (h_m - 1)
+    corners = []
+    for lon, lat in ((lon_nw, lat_nw), (lon_se, lat_nw), (lon_nw, lat_se), (lon_se, lat_se)):
+        for hh in (0.0, hmax):
+            lam, phi = np.radians(lon), np.radians(lat)
+            r = 6_371_000.0 + hh
+            corners.append((r * np.cos(phi) * np.cos(lam), r * np.cos(phi) * np.sin(lam), r * np.sin(phi)))
+    corners = np.asarray(corners, np.float64)
+    center = corners.mean(axis=0)
+    radius = float(np.linalg.norm(corners - center, axis=1).max()) * 1.001 + 1.0
+
+    def dev(a, dtype=None):
+        return torch.as_tensor(a, dtype=dtype).to(device)
+
+    arrs = _device_mosaic_tables(
+        dev(heights),
+        dev(valid),
+        dev(owner, torch.int64),
+        dev(rotations.reshape(-1)),
+        dev(np.asarray([lon_nw, lat_nw, ps_x, ps_y], np.float32)),
+        quantize_normals=bool(quantize_normals),
+        correct_axes=bool(correct_axes),
+        exact_tables=bool(exact_tables),
+        window_table_min=int(window_table_min),
+    )
+    return TerrainMosaic(
+        heights_flat=arrs["heights"],
+        attr_packed_flat=arrs["attr"],
+        cell_heights_flat=arrs["cell"],
+        has_cell_table=bool(exact_tables),
+        shape=(h_m, w_m),
+        mip_heights_flat=arrs["mips"],
+        mip_attr_flat=arrs["mip_attrs"],
+        mip_hmax_flat=arrs["mip_hmax"],
+        mip_shapes=_mip_shapes(h_m, w_m),
+        win_attr_2d=arrs["win_attr_2d"],
+        host=MosaicHostData(valid=valid, cell_tile=cell_tile, tile_rot=rotations),
+        model_point=dev(np.array([lon_nw, lat_nw], np.float32)),
+        pixel_scale=dev(np.array([abs(ps_x), abs(ps_y)], np.float32)),
+        hmax=dev(np.float32(hmax)),
+        bound_center=dev(np.asarray(center, np.float32)),
+        bound_radius=dev(np.float32(radius)),
+        texel_m=_texel_m_hint(ps_y),
+    )
+
+
+def mosaic_from_arrays(
+    arrays: Mapping[str, Any], *, shape, mip_shapes, texel_m: float, device=None
+) -> TerrainMosaic:
+    """A `TerrainMosaic` from another build's tables given as numpy arrays
+    (``ARRAY_FIELDS``; tuples per level, ``None`` entries of
+    ``win_attr_2d`` stay ``None``). Bits are carried unchanged."""
+    from topo_renderer_tpu_torch import resolve_device
+
+    device = resolve_device(device)
+
+    def conv(a):
+        if a is None:
+            return None
+        if isinstance(a, (tuple, list)):
+            return tuple(conv(x) for x in a)
+        return torch.from_numpy(np.array(a)).to(device)
+
+    t = {name: conv(arrays[name]) for name in ARRAY_FIELDS}
+    return TerrainMosaic(
+        **t,
+        has_cell_table=t["cell_heights_flat"].shape[0] > 1,
+        shape=tuple(shape),
+        mip_shapes=tuple(tuple(s) for s in mip_shapes),
+        host=MosaicHostData(valid=None, cell_tile=None, tile_rot=None),
+        texel_m=float(texel_m),
+    )

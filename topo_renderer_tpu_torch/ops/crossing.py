@@ -1,0 +1,118 @@
+"""First-crossing search over terrain profiles (kernel K1).
+
+Port of `topo_renderer_tpu/ops/pallas_crossing.py::crossing_search_pallas`.
+Given per-column visibility profiles ``e_prof [N, W]`` (any monotone function
+of elevation, not yet cummaxed) and three payload planes, find for every
+pixel row the first profile step whose running max exceeds the row's
+threshold, with that step's profile value (theta_hi), the previous running
+max (m_lo) and the payloads there. Rows that never cross ("sky") get
+``kstar = N`` and 0 elsewhere.
+
+`crossing_search` launches the hand-written CUDA kernel
+(`csrc/crossing.cu`) for CUDA tensors and runs `crossing_search_plain` for
+CPU tensors; it never falls back from one to the other.
+"""
+
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+from topo_renderer_tpu_torch import cuda_build
+
+M_INIT = -3.0e38  # running-max start value of the TPU kernel
+
+
+def crossing_search_plain(e_prof, a0, a1, a2, thresh):
+    """Plain PyTorch version: the numpy oracle of the TPU kernel's tests
+    (`tests/test_pallas_crossing.py:16-36`) step by step.
+
+    ``thresh`` is ``f32[H]``: one threshold per row, the same for every
+    column. Returns (kstar, theta_hi, m_lo, n0, n1, n2), each ``f32[H, W]``.
+    """
+    n, w = e_prof.shape
+    h = thresh.shape[0]
+    opts = dict(dtype=torch.float32, device=e_prof.device)
+    kstar = torch.full((h, w), float(n), **opts)
+    theta, mlo, o0, o1, o2 = (torch.zeros((h, w), **opts) for _ in range(5))
+    m_prev = torch.full((w,), M_INIT, **opts)
+    t = thresh[:, None]
+    for k in range(n):
+        m_new = torch.maximum(m_prev, e_prof[k])  # NaN-propagating
+        cross = (t < m_new[None, :]) & (t >= m_prev[None, :])
+        kstar = torch.where(cross, float(k), kstar)
+        theta = torch.where(cross, e_prof[k][None, :], theta)
+        mlo = torch.where(cross, m_prev[None, :], mlo)
+        o0 = torch.where(cross, a0[k][None, :], o0)
+        o1 = torch.where(cross, a1[k][None, :], o1)
+        o2 = torch.where(cross, a2[k][None, :], o2)
+        m_prev = m_new
+    return kstar, theta, mlo, o0, o1, o2
+
+
+_lib = None
+
+
+def _kernel_lib():
+    global _lib
+    if _lib is None:
+        lib = cuda_build.load("crossing")
+        p, i = ctypes.c_void_p, ctypes.c_int
+        lib.crossing_search.argtypes = [p, p, p, p, p, p, p, i, i, i, p, p, p, p, p, p, p]
+        lib.crossing_search.restype = ctypes.c_int
+        lib.error_string.argtypes = [ctypes.c_int]
+        lib.error_string.restype = ctypes.c_char_p
+        _lib = lib
+    return _lib
+
+
+def _check_inputs(e_prof, a0, a1, a2, thresh):
+    planes = (e_prof, a0, a1, a2)
+    if e_prof.dim() != 2 or thresh.dim() != 1:
+        raise ValueError("crossing_search takes e_prof [N, W] and thresh [H]")
+    for x in planes + (thresh,):
+        if x.dtype != torch.float32:
+            raise TypeError(f"crossing_search takes float32 tensors, got {x.dtype}")
+        if x.device != e_prof.device:
+            raise ValueError("crossing_search inputs must share one device")
+    for x in planes[1:]:
+        if x.shape != e_prof.shape:
+            raise ValueError(f"payload shape {tuple(x.shape)} != profile {tuple(e_prof.shape)}")
+
+
+def crossing_search(e_prof, a0, a1, a2, thresh):
+    """First crossings of ``thresh f32[H]`` by the running max of
+    ``e_prof f32[N, W]``, carrying payloads ``a0..a2 f32[N, W]``.
+
+    Returns (kstar, theta_hi, m_lo, n0, n1, n2), each ``f32[H, W]``. Rows may
+    come in any threshold order (the TPU kernel needed them non-increasing).
+    """
+    _check_inputs(e_prof, a0, a1, a2, thresh)
+    if e_prof.device.type == "cpu":
+        return crossing_search_plain(e_prof, a0, a1, a2, thresh)
+    if e_prof.device.type != "cuda":
+        raise ValueError(f"crossing_search runs on CPU or CUDA, not {e_prof.device}")
+    for x in (e_prof, a0, a1, a2, thresh):
+        if not x.is_contiguous():
+            raise ValueError("crossing_search's CUDA kernel takes contiguous tensors")
+    lib = _kernel_lib()
+    n, w = e_prof.shape
+    h = thresh.shape[0]
+    outs = [torch.empty((h, w), dtype=torch.float32, device=e_prof.device) for _ in range(6)]
+    t_ranked = torch.empty((h,), dtype=torch.float32, device=e_prof.device)
+    row_of_rank = torch.empty((h,), dtype=torch.int32, device=e_prof.device)
+    with torch.cuda.device(e_prof.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        err = lib.crossing_search(
+            e_prof.data_ptr(), a0.data_ptr(), a1.data_ptr(), a2.data_ptr(),
+            thresh.data_ptr(), t_ranked.data_ptr(), row_of_rank.data_ptr(),
+            n, w, h, *(o.data_ptr() for o in outs), stream,
+        )
+    crossing_search.launches += 1
+    if err:
+        raise RuntimeError(f"crossing_search launch failed: {lib.error_string(err).decode()}")
+    return tuple(outs)
+
+
+crossing_search.launches = 0  # kernel launches (CPU calls do not count)

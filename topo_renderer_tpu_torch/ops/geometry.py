@@ -1,0 +1,49 @@
+"""Sphere geometry: geographic coordinates -> ECEF positions.
+
+Port of `topo_renderer_tpu/ops/geometry.py` (parity with
+`topo-renderer/src/render/geometry.rs:5,12-20`): the Earth is a sphere of
+radius R0 = 6,371,000 m; a point at longitude λ, latitude φ and height h sits
+at r = R0 + h, x = r cos φ cos λ, y = r cos φ sin λ, z = r sin φ.
+
+All functions take float32 tensors and broadcast over leading axes.
+"""
+
+from __future__ import annotations
+
+import math
+
+import torch
+
+R0 = 6_371_000.0
+
+
+def f32(x, device=None) -> torch.Tensor:
+    """Python number or tensor -> float32 tensor (the JAX package's
+    ``jnp.float32(x)``)."""
+    return torch.as_tensor(x, dtype=torch.float32, device=device)
+
+
+def radians(x: torch.Tensor) -> torch.Tensor:
+    """``jnp.radians``: one float32 multiply by f32(pi/180)."""
+    return x * f32(math.pi / 180.0, x.device)
+
+
+def degrees(x: torch.Tensor) -> torch.Tensor:
+    """``jnp.degrees``: one float32 multiply by f32(180/pi)."""
+    return x * f32(180.0 / math.pi, x.device)
+
+
+def ecef_from_geo(height, longitude_deg, latitude_deg):
+    """`geometry::transform` (`geometry.rs:12-20`): (h, lon°, lat°) -> ECEF [...,3]."""
+    height, longitude_deg, latitude_deg = (
+        f32(v) if not isinstance(v, torch.Tensor) else v
+        for v in (height, longitude_deg, latitude_deg)
+    )
+    r = R0 + height
+    lon = radians(longitude_deg)
+    lat = radians(latitude_deg)
+    cos_lat = torch.cos(lat)
+    return torch.stack(
+        [r * cos_lat * torch.cos(lon), r * cos_lat * torch.sin(lon), r * torch.sin(lat)],
+        dim=-1,
+    )

@@ -1,0 +1,101 @@
+"""Terrain surface normals: latitude-corrected central differences.
+
+Port of `topo_renderer_tpu/ops/normals.py::compute_normals_soa`, the
+replacement for the reference's three WGSL normal compute shaders
+(`compute_normals_shader.wgsl:22-58` and its edge/corner variants): once the
+tiles form one mosaic, one dense central difference reproduces interior and
+seams alike. Reference semantics kept exactly: metric spacing with the
+cos-latitude factor on the *latitude* spacing (``correct_axes=False``),
+normal = normalize(cross(right-left, top-bottom)), the Rgba8Unorm round trip,
+and the zero-encoded normal for texels without a complete 4-neighbourhood.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from topo_renderer_tpu_torch.ops.geometry import R0, f32, radians
+
+
+def quantize_unorm8(v):
+    """Rgba8Unorm storage-texture round trip: clamp to [0,1], round to the
+    nearest of 256 levels."""
+    return torch.round(torch.clamp(v, 0.0, 1.0) * 255.0) / 255.0
+
+
+def _pad_edge(x: torch.Tensor) -> torch.Tensor:
+    """``jnp.pad(x, 1, mode="edge")`` on the two trailing axes."""
+    x = torch.cat([x[..., :1, :], x, x[..., -1:, :]], dim=-2)
+    return torch.cat([x[..., :1], x, x[..., -1:]], dim=-1)
+
+
+def compute_normals_soa(
+    heights: torch.Tensor,
+    pixel_scale,
+    raster_point,
+    model_point,
+    valid: torch.Tensor | None = None,
+    quantize: bool = True,
+    correct_axes: bool = False,
+):
+    """Decoded normal planes ``(nx, ny, nz)`` of ``heights f32[H, W]``.
+
+    ``pixel_scale``/``model_point`` entries may be Python numbers or float32
+    scalar tensors. Scalar-precision trap: the JAX package evaluates
+    ``jnp.float32(pixel_scale)`` and ``jnp.radians(ps_x) * R0``
+    (`normals.py:62-79`) in float32; doing them on Python floats (float64)
+    moves the metric spacing by an ulp and flips packed normal codes. So every
+    scalar step here runs on float32 tensors.
+    """
+    dev = heights.device
+    h, w = heights.shape[-2], heights.shape[-1]
+    ps_x = f32(pixel_scale[0], dev)
+    ps_y = f32(pixel_scale[1], dev)
+
+    rows = torch.arange(h, dtype=torch.float32, device=dev)
+    lat_deg = (rows - f32(raster_point[1], dev)) * -ps_y + f32(model_point[1], dev)
+
+    x_m = radians(ps_x) * R0
+    y_m = radians(ps_y) * R0
+    cos_lat = torch.cos(radians(lat_deg))
+    if correct_axes:
+        x_row = x_m * cos_lat
+        y_row = y_m.expand(cos_lat.shape)
+    else:
+        # Reference behaviour: cos on the latitude spacing
+        # (`compute_normals_shader.wgsl:39-40`).
+        x_row = x_m.expand(cos_lat.shape)
+        y_row = y_m * cos_lat
+
+    hp = _pad_edge(heights)
+    dhx = hp[..., 1:-1, 2:] - hp[..., 1:-1, :-2]  # h(right) - h(left)
+    dhy = hp[..., :-2, 1:-1] - hp[..., 2:, 1:-1]  # h(top=row-1) - h(bottom=row+1)
+
+    x_b = x_row.reshape(h, 1)
+    y_b = y_row.reshape(h, 1)
+    # cross((2x,0,dhx), (0,2y,dhy)) = (-2y*dhx, -2x*dhy, 4xy)
+    nx = -2.0 * y_b * dhx
+    ny = -2.0 * x_b * dhy
+    nz = (4.0 * x_b * y_b).expand(dhx.shape)
+    nrm = torch.sqrt(nx * nx + ny * ny + nz * nz)
+    nx, ny, nz = nx / nrm, ny / nrm, nz / nrm
+
+    row_idx = torch.arange(h, device=dev).reshape(h, 1)
+    col_idx = torch.arange(w, device=dev).reshape(1, w)
+    interior = (row_idx > 0) & (row_idx < h - 1) & (col_idx > 0) & (col_idx < w - 1)
+    if valid is not None:
+        vp = _pad_edge(valid)
+        neigh_ok = (
+            vp[1:-1, 1:-1] & vp[1:-1, 2:] & vp[1:-1, :-2] & vp[:-2, 1:-1] & vp[2:, 1:-1]
+        )
+        interior = interior & neigh_ok
+
+    out = []
+    for comp in (nx, ny, nz):
+        encoded = 0.5 * (comp + 1.0)
+        if quantize:
+            encoded = quantize_unorm8(encoded)
+        encoded = torch.where(interior, encoded, 0.0)
+        # Decode like the vertex shader: 2*texel - 1 (`render_shader.wgsl:66`).
+        out.append(2.0 * encoded - 1.0)
+    return tuple(out)

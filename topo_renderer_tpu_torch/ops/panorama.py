@@ -1,0 +1,517 @@
+"""Cylindrical panorama renderer: great-circle column marching (LOD path).
+
+Port of the LOD path of `topo_renderer_tpu/ops/panorama.py`. Every vertical
+image column of a panorama lies in a plane through the eye and the Earth's
+centre, so one column needs:
+
+  1. a 1-D profile of terrain elevation ratios (tan e) along its ground
+     trace, sampled from the distance-matched mip level through eye-centred
+     clipmap windows (`extract_clipmap_windows`, kernel K2);
+  2. per pixel row, the first profile step whose running max exceeds the
+     row's tan(elevation) (`ops/crossing.py`, kernel K1);
+  3. the hit height from the crossing geometry, the normal carried by the
+     profile sample, then shading, fog and postprocessing.
+
+Only the LOD spec with profile-carried attributes (`PanoramaSpec.fast`) is
+ported. The non-LOD branch, per-pixel refinement and the reduction-based
+crossing raise NotImplementedError (ROADMAP.md, slice 1 deferred parts).
+"""
+
+from __future__ import annotations
+
+import dataclasses
+
+import numpy as np
+import torch
+
+from topo_renderer_tpu_torch.models.camera import FAR, NEAR, depth_from_dist
+from topo_renderer_tpu_torch.ops import shading as shd
+from topo_renderer_tpu_torch.ops.crossing import crossing_search
+from topo_renderer_tpu_torch.ops.geometry import R0, degrees, f32
+from topo_renderer_tpu_torch.ops.mathx import norm
+from topo_renderer_tpu_torch.ops.postprocess import (
+    atmospheric_shading_soa,
+    distance_fog_soa,
+    postprocess_soa,
+)
+from topo_renderer_tpu_torch.ops.surface import INVALID_HEIGHT, raster_from_ecef, raster_from_geo
+from topo_renderer_tpu_torch.ops.window_slice import window_slice_multi
+
+_DEFERRED = "ROADMAP.md slice 1, deferred parts"
+
+
+@dataclasses.dataclass(frozen=True)
+class PanoramaSpec:
+    """Static panorama parameters; the JAX package's fields, one for one."""
+
+    width: int = 2048
+    height: int = 512
+    azimuth_start: float = 0.0  # radians, 0 = north, increasing eastward
+    azimuth_span: float = 6.283185307179586  # full circle
+    elev_min: float | None = None  # radians; default: square pixels
+    elev_max: float | None = None
+    n_steps: int = 1024
+    s_near: float = 5.0  # metres along the ground
+    s_far: float = FAR
+    n_refine: int = 2
+    lod: bool = False  # sample distance-matched height mips for the profile
+    lod_texel_m: float | None = None  # texel-size override (m)
+    profile_stride: int = 1  # compute the profile on every k-th column
+    profile_nearest: bool = False
+    attrs_nearest: bool = False
+    attrs_from_profile: bool = False  # shade from per-sample attrs (needs lod)
+    clipmap: bool = False  # gather from eye-centred windows, not full tables
+    clipmap_threshold: int = 2_000_000  # tables above this size are windowed
+    near_bilinear_m: float = 0.0  # bilinear profile steps closer than this
+    profile_far_stride_m: float = 0.0  # double the azimuth stride beyond this
+    profile_far_stride4_m: float = 0.0  # quadruple it beyond this
+    use_pallas: bool = True  # the JAX name for "use the crossing kernel"
+
+    def elevation_range(self) -> tuple[float, float]:
+        if self.elev_min is not None and self.elev_max is not None:
+            return (self.elev_min, self.elev_max)
+        half = 0.5 * self.azimuth_span * self.height / self.width
+        return (-half, half)
+
+    @staticmethod
+    def fast(width=2048, height=512, n_steps=512, **kw) -> "PanoramaSpec":
+        """Throughput preset: clipmapped mip LOD, nearest profile sampling,
+        attributes carried by the profile samples, no refinement."""
+        kw.setdefault("lod", True)
+        kw.setdefault("profile_stride", 2)
+        kw.setdefault("profile_nearest", True)
+        kw.setdefault("attrs_from_profile", True)
+        kw.setdefault("clipmap", True)
+        kw.setdefault("near_bilinear_m", 3000.0)
+        kw.setdefault("n_refine", 0)
+        return PanoramaSpec(width=width, height=height, n_steps=n_steps, **kw)
+
+
+def _eye_frame(eye):
+    """(a0, up, east, north components, (lon0, lat0)) for the eye position.
+
+    Scalar-precision trap: the eye radius is ``jnp.linalg.norm(eye)`` in
+    float32 (`panorama.py:144`); `norm` sums the squares in the same order.
+    """
+    e_norm = norm(eye)
+    a0 = e_norm - R0
+    ux, uy, uz = eye[0] / e_norm, eye[1] / e_norm, eye[2] / e_norm
+    lon0 = torch.atan2(eye[1], eye[0])
+    lat0 = torch.asin(torch.clamp(eye[2] / e_norm, -1.0, 1.0))
+    ex, ey = -torch.sin(lon0), torch.cos(lon0)
+    nx = -torch.sin(lat0) * torch.cos(lon0)
+    ny = -torch.sin(lat0) * torch.sin(lon0)
+    nz = torch.cos(lat0)
+    return a0, (ux, uy, uz), (ex, ey), (nx, ny, nz), (lon0, lat0)
+
+
+def _texel_m(spec: PanoramaSpec, mosaic) -> float:
+    """Effective base texel size: the spec override, else the mosaic's hint."""
+    if spec.lod_texel_m is not None:
+        return float(spec.lod_texel_m)
+    return float(getattr(mosaic, "texel_m", 92.6))
+
+
+def _lod_segments(spec: PanoramaSpec, n_levels: int, texel_m: float):
+    """Static per-step mip level from the log step schedule: level L once the
+    step length reaches ~2^L base texels. Returns [(level, k0, k1), ...]."""
+    k = np.arange(spec.n_steps)
+    s = spec.s_near * (spec.s_far / spec.s_near) ** (k / (spec.n_steps - 1))
+    ds = s * (np.log(spec.s_far / spec.s_near) / (spec.n_steps - 1))
+    level = np.clip(
+        np.floor(np.log2(np.maximum(ds / texel_m, 1e-6))) + 1, 0, n_levels
+    ).astype(int)
+    segments = []
+    k0 = 0
+    for i in range(1, spec.n_steps + 1):
+        if i == spec.n_steps or level[i] != level[k0]:
+            segments.append((int(level[k0]), k0, i))
+            k0 = i
+    return segments
+
+
+def _clipmap_window_plan(spec: PanoramaSpec, mosaic):
+    """Static clipmap plan: [(level, use_window, wsy, wsx, table_shape)].
+
+    Each mip level is only sampled within a constant texel radius
+    (~2.5/dlog) of the eye, so window sizes depend on the spec alone. The
+    sizes keep the JAX package's (8, 128) rounding and slack so that windows
+    land where the reference's do.
+    """
+    n_levels = len(mosaic.mip_shapes)
+    dlog = np.log(spec.s_far / spec.s_near) / (spec.n_steps - 1)
+    ratio = max(1.0, _texel_m(spec, mosaic) / float(getattr(mosaic, "texel_m", 92.6)))
+    need = int(np.ceil(2.5 * ratio / dlog)) + 16
+    wsy_req = -(-(2 * need + 16) // 8) * 8
+    wsx_req = -(-(2 * need + 256) // 128) * 128
+    plan = []
+    for level in range(n_levels + 1):
+        shape_l = mosaic.shape if level == 0 else mosaic.mip_shapes[level - 1]
+        h_t, w_t = shape_l
+        use_window = (
+            spec.clipmap
+            and (h_t * w_t > spec.clipmap_threshold)
+            and h_t >= wsy_req
+            and w_t >= wsx_req
+        )
+        plan.append((level, use_window, wsy_req, wsx_req, shape_l))
+    return plan
+
+
+def _bilinear_levels(spec: PanoramaSpec, n_levels: int, texel_m: float) -> set:
+    """Levels whose schedule segment overlaps the bilinear near field."""
+    if spec.near_bilinear_m <= 0.0:
+        return set()
+    s = spec.s_near * (spec.s_far / spec.s_near) ** (np.arange(spec.n_steps) / (spec.n_steps - 1))
+    k_cut = int(np.searchsorted(s, spec.near_bilinear_m))
+    return {level for level, k0, k1 in _lod_segments(spec, n_levels, texel_m) if k0 < k_cut}
+
+
+def _window_origin(gx_e, gy_e, level: int, wsy: int, wsx: int, h_t: int, w_t: int):
+    """Eye-centred window origin for one clipmap level, clipped into the
+    table and aligned DOWN to (8, 128) exactly as the JAX package aligns it
+    (for its TPU tiling), so the windows hold the same texels."""
+    s = float(2**level)
+    off = (s - 1.0) / 2.0
+    sx = torch.clamp(torch.round((gx_e - off) / s).to(torch.int32) - wsx // 2, 0, w_t - wsx)
+    sx = (sx // 128) * 128
+    sy = torch.clamp(torch.round((gy_e - off) / s).to(torch.int32) - wsy // 2, 0, h_t - wsy)
+    sy = (sy // 8) * 8
+    return sx, sy
+
+
+def _quad_rows(win):
+    """Pack each texel's 2x2 bilinear neighbourhood into one gather row.
+
+    ``win f32[2, wsy, wsx]`` -> ``f32[wsy*wsx, 8]`` rows (h00, b00, h01, b01,
+    h10, b10, h11, b11), 01 = east, 10 = south, 11 = south-east
+    (edge-clamped). Moved as int32 words: plane 1 holds normal bits.
+    """
+    w = win.view(torch.int32)
+    e = torch.cat([w[:, :, 1:], w[:, :, -1:]], dim=2)
+    s_ = torch.cat([w[:, 1:, :], w[:, -1:, :]], dim=1)
+    se = torch.cat([s_[:, :, 1:], s_[:, :, -1:]], dim=2)
+    planes = [w[0], w[1], e[0], e[1], s_[0], s_[1], se[0], se[1]]
+    return torch.stack([p.reshape(-1) for p in planes], dim=-1).view(torch.float32)
+
+
+def extract_clipmap_windows(mosaic, eye, spec: PanoramaSpec):
+    """Slice the eye-centred clipmap windows out of the mosaic's 2-D window
+    tables, all levels in one launch of kernel K2.
+
+    Returns a tuple over levels of ``(tbl_h, tbl_a, tbl_q, ox, oy)``:
+    ``tbl_a f32[wsy*wsx, 2]`` (height, normal-bits) rows, ``tbl_q
+    f32[wsy*wsx, 8]`` quad rows for levels with a bilinear segment, and the
+    int32 origin. Entries are None where the level is gathered in full.
+    """
+    dev = mosaic.device
+    eye = f32(eye).to(dev)
+    n_levels = len(mosaic.mip_shapes)
+    use_attr = bool(spec.attrs_from_profile and spec.lod and n_levels)
+    e_norm = norm(eye)
+    lon0 = degrees(torch.atan2(eye[1], eye[0]))
+    lat0 = degrees(torch.asin(torch.clamp(eye[2] / e_norm, -1.0, 1.0)))
+    gx_e, gy_e = raster_from_geo(mosaic, lon0, lat0)
+
+    quad_levels = _bilinear_levels(spec, n_levels, _texel_m(spec, mosaic)) if use_attr else set()
+    plan = _clipmap_window_plan(spec, mosaic)
+    levels, tables, origins = [], [], []
+    out = []
+    for level, use_window, wsy, wsx, (h_t, w_t) in plan:
+        if not use_window:
+            out.append((None, None, None, None, None))
+            continue
+        win2d = mosaic.win_attr_2d[level] if level < len(mosaic.win_attr_2d) else None
+        if not use_attr or win2d is None:
+            raise NotImplementedError(
+                "clipmap windows from the flat gather tables (no win_attr_2d "
+                f"table for level {level}, or a spec without profile attributes): {_DEFERRED}"
+            )
+        sx, sy = _window_origin(gx_e, gy_e, level, wsy, wsx, h_t, w_t)
+        levels.append(level)
+        tables.append(win2d)
+        origins.append(torch.stack([sy, sx]))
+        out.append((None, None, None, sx, sy))
+
+    if tables:
+        wsy, wsx = plan[0][2], plan[0][3]
+        wins = window_slice_multi(tables, torch.stack(origins), wsy=wsy, wsx=wsx)
+        for level, win in zip(levels, wins):
+            sx, sy = out[level][3], out[level][4]
+            tbl_q = _quad_rows(win) if level in quad_levels else None
+            out[level] = (None, win.reshape(2, -1).T, tbl_q, sx, sy)
+    return tuple(out)
+
+
+def _build_lod_profile(mosaic, spec: PanoramaSpec, windows, a0, up, h_prof_b, sigma):
+    """LOD visibility profile ``e_prof f32[N, ws]`` (tan-elevation ratios,
+    -1e30 outside the mosaic) and the three normal-code planes carried by
+    each sample. Each log-schedule segment samples the mip level matching
+    its step length, through the clipmap windows where the level is large.
+    """
+    N = spec.n_steps
+    n_levels = len(mosaic.mip_shapes)
+    plan = _clipmap_window_plan(spec, mosaic)
+    parts_e, parts_attr = [], []
+    segments = _lod_segments(spec, n_levels, _texel_m(spec, mosaic))
+    s_np = spec.s_near * (spec.s_far / spec.s_near) ** (np.arange(N) / (N - 1))
+    cuts = [
+        c
+        for c in (spec.near_bilinear_m, spec.profile_far_stride_m, spec.profile_far_stride4_m)
+        if c > 0.0
+    ]
+    for cut in cuts:
+        # Statically split segments at the bilinear / far-stride boundaries.
+        k_cut = int(np.searchsorted(s_np, cut))
+        split = []
+        for level, k0, k1 in segments:
+            if k0 < k_cut < k1:
+                split += [(level, k0, k_cut), (level, k_cut, k1)]
+            else:
+                split.append((level, k0, k1))
+        segments = split
+    ws_cols = h_prof_b[0].shape[1]
+    for level, k0, k1 in segments:
+        seg_bilinear = spec.near_bilinear_m > 0.0 and s_np[k1 - 1] <= spec.near_bilinear_m
+        far4 = (
+            spec.profile_far_stride4_m > 0.0
+            and not seg_bilinear
+            and s_np[k0] >= spec.profile_far_stride4_m
+            and ws_cols % 4 == 0
+        )
+        far2 = (
+            not far4
+            and spec.profile_far_stride_m > 0.0
+            and not seg_bilinear
+            and s_np[k0] >= spec.profile_far_stride_m
+            and ws_cols % 2 == 0
+        )
+        stride = 4 if far4 else (2 if far2 else 1)
+        hp_seg = tuple(c[:, ::stride] for c in h_prof_b) if stride > 1 else h_prof_b
+        _, use_window, wsy, wsx, (h_t, w_t) = plan[level]
+        s = float(2**level)
+        off = (s - 1.0) / 2.0
+        if use_window:
+            _, tbl_a, tbl_q, ox, oy = windows[level]
+            tw, th_ = wsx, wsy
+        else:
+            tbl_a = mosaic.attr_packed_flat if level == 0 else mosaic.mip_attr_flat[level - 1]
+            tbl_q = None
+            tw, th_, ox, oy = w_t, h_t, 0, 0
+
+        sig_seg = sigma[k0:k1]
+        cs = torch.cos(sig_seg)
+        sn = torch.sin(sig_seg)
+        sh2 = torch.sin(0.5 * sig_seg) ** 2
+        sdx = up[0] * cs + hp_seg[0] * sn
+        sdy = up[1] * cs + hp_seg[1] * sn
+        sdz = up[2] * cs + hp_seg[2] * sn
+        gx0, gy0 = raster_from_ecef(mosaic, sdx, sdy, sdz, 1.0)
+        lx = (gx0 - off) / s - ox
+        ly = (gy0 - off) / s - oy
+        if seg_bilinear:
+            # Near field: bilinear height + normal codes, the whole 2x2
+            # neighbourhood from one quad-row gather where there is one.
+            ok = (lx >= 0) & (lx <= tw - 1) & (ly >= 0) & (ly <= th_ - 1)
+            x0 = torch.clamp(torch.floor(lx).to(torch.int32), 0, tw - 2)
+            y0 = torch.clamp(torch.floor(ly).to(torch.int32), 0, th_ - 2)
+            fxs = torch.clamp(lx - x0, 0.0, 1.0)
+            fys = torch.clamp(ly - y0, 0.0, 1.0)
+            i00 = (y0 * tw + x0).long()
+            if tbl_q is not None:
+                q = tbl_q[i00]
+                r00, r01, r10, r11 = q[..., 0:2], q[..., 2:4], q[..., 4:6], q[..., 6:8]
+            else:
+                r00, r01, r10, r11 = (tbl_a[i00 + d] for d in (0, 1, tw, tw + 1))
+
+            def blend(v00, v01, v10, v11):
+                return (v00 * (1 - fxs) + v01 * fxs) * (1 - fys) + (v10 * (1 - fxs) + v11 * fxs) * fys
+
+            h = blend(r00[..., 0], r01[..., 0], r10[..., 0], r11[..., 0])
+            bbits = [r[..., 1].view(torch.int32) for r in (r00, r01, r10, r11)]
+            comps = []
+            for sh in (0, 10, 20):
+                c = blend(*(((b >> sh) & 0x3FF).to(torch.float32) for b in bbits))
+                comps.append(torch.where(ok, torch.round(c), 0.0))
+            parts_attr.append(tuple(comps))
+        else:
+            ix = torch.round(lx).to(torch.int32)
+            iy = torch.round(ly).to(torch.int32)
+            ok = (ix >= 0) & (ix <= tw - 1) & (iy >= 0) & (iy <= th_ - 1)
+            idx = (torch.clamp(iy, 0, th_ - 1) * tw + torch.clamp(ix, 0, tw - 1)).long()
+            # One row gather serves the height and the packed normal.
+            rows = tbl_a[idx]
+            h = rows[..., 0]
+            bits = rows[..., 1].view(torch.int32)
+            comps_part = tuple(
+                torch.where(ok, ((bits >> sh) & 0x3FF).to(torch.float32), 0.0)
+                for sh in (0, 10, 20)
+            )
+            if stride > 1:
+                comps_part = tuple(torch.repeat_interleave(c, stride, dim=1) for c in comps_part)
+            parts_attr.append(comps_part)
+        ok = ok & (h > 0.5 * INVALID_HEIGHT)
+        y = h * cs - a0 - 2.0 * R0 * sh2
+        x = (R0 + h) * sn
+        # Ratio space: y/x == tan(e) (x > 0 along the march).
+        e_part = torch.where(ok, y / x, -1.0e30)
+        if stride > 1:
+            e_part = torch.repeat_interleave(e_part, stride, dim=1)
+        parts_e.append(e_part)
+    e_prof = torch.cat(parts_e, dim=0)
+    attr_prof = tuple(torch.cat([p[c] for p in parts_attr], dim=0) for c in range(3))
+    return e_prof, attr_prof
+
+
+def render_panorama(
+    mosaic,
+    eye,
+    spec: PanoramaSpec,
+    sun_direction,
+    view_mode=0,
+    pixelize_n=None,
+    quantize_rt: bool = True,
+    apply_postprocess: bool = True,
+    fog: str | None = None,
+    fog_density: float = 1.0 / 80_000.0,
+    azimuth_offset=0.0,
+    elev_offset=0.0,
+    pixel_offset_x=0.0,
+    windows=None,
+    soa: bool = False,
+):
+    """Render a cylindrical panorama around ``eye`` on the mosaic's device.
+
+    Returns ``{"color" f32[H, W, 3] (or "chans" with soa=True), "depth"
+    (reference 0..1 convention), "distance", "hit"}``. ``fog``: None |
+    "distance" | "atmosphere". ``windows``: pre-extracted clipmap windows
+    (`extract_clipmap_windows`), extracted here when None.
+    """
+    n_levels = len(mosaic.mip_shapes)
+    if not (spec.lod and n_levels):
+        raise NotImplementedError(f"non-LOD panorama (_surface_elevation branch): {_DEFERRED}")
+    if not spec.attrs_from_profile:
+        raise NotImplementedError(f"LOD panorama without profile attributes: {_DEFERRED}")
+    if spec.n_refine > 0:
+        raise NotImplementedError(f"per-pixel refinement (n_refine > 0): {_DEFERRED}")
+    if not spec.use_pallas:
+        raise NotImplementedError(f"reduction-based crossing (use_pallas=False): {_DEFERRED}")
+
+    dev = mosaic.device
+    eye = f32(eye).to(dev)
+    W, H, N = spec.width, spec.height, spec.n_steps
+
+    a0, up, (ex, ey), (nx0, ny0, nz0), _ = _eye_frame(eye)
+
+    def azimuths(n_cols):
+        base = f32(spec.azimuth_start, dev) + f32(azimuth_offset, dev)
+        return base + spec.azimuth_span * (
+            (torch.arange(n_cols, dtype=torch.float32, device=dev) + 0.5) / n_cols
+        )
+
+    phi = azimuths(W)
+    cphi, sphi = torch.cos(phi), torch.sin(phi)
+    hx = (nx0 * cphi + ex * sphi)[None, :]  # per-pixel-column ground direction
+    hy = (ny0 * cphi + ey * sphi)[None, :]
+
+    # Scalar-precision trap: the schedule constants are float32 logs
+    # (`panorama.py:472-476`), not Python (float64) ones.
+    log_near = torch.log(f32(spec.s_near, dev))
+    log_ratio = torch.log(f32(spec.s_far / spec.s_near, dev))
+
+    def sigma_of(kf):
+        return torch.exp(log_near + log_ratio * (kf / (N - 1))) / R0
+
+    sigma = sigma_of(torch.arange(N, dtype=torch.float32, device=dev)[:, None])  # [N, 1]
+
+    st = max(1, int(spec.profile_stride))
+    if W % st:
+        raise ValueError("width must be divisible by profile_stride")
+    ws = W // st
+    if st > 1:
+        phi_sub = azimuths(ws)
+        cps, sps = torch.cos(phi_sub), torch.sin(phi_sub)
+        h_prof = (nx0 * cps + ex * sps, ny0 * cps + ey * sps, nz0 * cps)
+    else:
+        h_prof = (hx[0], hy[0], nz0 * cphi)
+    h_prof_b = tuple(c[None, :] for c in h_prof)
+
+    if windows is None:
+        windows = extract_clipmap_windows(mosaic, eye, spec)
+    e_prof, attr_prof = _build_lod_profile(mosaic, spec, windows, a0, up, h_prof_b, sigma)
+
+    # Pixel elevation thresholds, row 0 at the top, in the profile's tan
+    # space.
+    e_lo, e_hi = spec.elevation_range()
+    rows = (torch.arange(H, dtype=torch.float32, device=dev) + 0.5) / H
+    e_pix = (f32(elev_offset, dev) + f32(e_hi, dev) - rows * f32(e_hi - e_lo, dev))[:, None]
+    t_pix = torch.tan(e_pix)  # [H, 1]
+
+    kstar, theta_hi, m_lo, p0, p1, p2 = crossing_search(
+        e_prof, attr_prof[0], attr_prof[1], attr_prof[2], t_pix.reshape(H)
+    )
+    n_payload = (p0, p1, p2)
+    if st > 1:
+        kstar, theta_hi, m_lo = (torch.repeat_interleave(x, st, dim=1) for x in (kstar, theta_hi, m_lo))
+        n_payload = tuple(torch.repeat_interleave(p, st, dim=1) for p in n_payload)
+
+    hit = kstar < N
+    kstar = torch.clamp(kstar, 0.0, float(N - 1))
+
+    sig_hi = sigma_of(kstar)
+    sig_lo = torch.where(kstar > 0, sigma_of(torch.clamp(kstar - 1.0, min=0.0)), sigma_of(0.0))
+    denom = theta_hi - m_lo
+    tfrac = torch.clamp(
+        (t_pix - m_lo) / torch.where(torch.abs(denom) < 1e-12, 1.0, denom), 0.0, 1.0
+    )
+    tfrac = torch.where(kstar > 0, tfrac, 0.0)
+    sig_star = sig_lo + tfrac * (sig_hi - sig_lo)
+
+    cs = torch.cos(sig_star)
+    sn = torch.sin(sig_star)
+    ux, uy, _ = up
+    sdx = ux * cs + hx * sn
+    sdy = uy * cs + hy * sn
+    # Analytic hit height: the crossing lies on the pixel ray at ground angle
+    # sig*, so h cos - a0 - 2 R0 sin^2(s/2) = tan(e) x.
+    tanp = t_pix
+    sh2s = torch.sin(0.5 * sig_star) ** 2
+    h_star = (a0 + 2.0 * R0 * sh2s + tanp * R0 * sn) / (cs - tanp * sn)
+    n_x, n_y, n_z = (2.0 * (p / 1023.0) - 1.0 for p in n_payload)
+    h_star = torch.clamp(h_star, min=-1e4)  # keep sky distances sane
+
+    y_ip = h_star * cs - a0 - 2.0 * R0 * torch.sin(0.5 * sig_star) ** 2
+    x_ip = (R0 + h_star) * sn
+    dist = torch.sqrt(x_ip * x_ip + y_ip * y_ip)
+    depth = torch.where(hit, depth_from_dist(torch.clamp(dist, NEAR, FAR)), 1.0)
+
+    # Dither seed: pixel centre + eye.xy - world position.xy
+    # (`render_shader.wgsl:103`), all in float32 like the reference.
+    pos_x = (R0 + h_star) * sdx
+    pos_y = (R0 + h_star) * sdy
+    px = torch.arange(W, dtype=torch.float32, device=dev)[None, :] + 0.5 + f32(pixel_offset_x, dev)
+    py = torch.arange(H, dtype=torch.float32, device=dev)[:, None] + 0.5
+    seed_x = px + eye[0] - pos_x
+    seed_y = py + eye[1] - pos_y
+
+    sun = f32(sun_direction).to(dev)
+    r, g, b = shd.shade_soa(n_x, n_y, n_z, sun, view_mode, seed_x, seed_y)
+    sky = shd.SKY_COLOR
+    channels = tuple(torch.where(hit, c, sc) for c, sc in zip((r, g, b), sky))
+
+    if fog == "distance":
+        channels = distance_fog_soa(channels, dist, sky, density=fog_density, sky_mask=~hit)
+    elif fog == "atmosphere":
+        channels = atmospheric_shading_soa(channels, dist, sky, sky_mask=~hit)
+
+    if quantize_rt:
+        channels = tuple(shd.quantize_srgb8(c) for c in channels)
+    if apply_postprocess:
+        channels = postprocess_soa(channels, depth, pixelize_n=pixelize_n)
+
+    out = {"depth": depth, "distance": torch.where(hit, dist, FAR), "hit": hit}
+    if soa:
+        out["chans"] = channels
+    else:
+        out["color"] = torch.stack(channels, dim=-1)
+    return out

@@ -1,0 +1,129 @@
+"""Bounded window copies out of large tables (kernels K2 and K4).
+
+Port of `topo_renderer_tpu/ops/pallas_dma.py::window_slice_multi` and
+`window_slice`. Each copies ``table[..., sy:sy+wsy, sx:sx+wsx]`` from one or
+several tables, reading only the window's texels, with the origin held in
+an int32 tensor on the tables' device so that no host sync is needed. An
+origin that would run past the table is clamped into it, as XLA's
+DynamicSlice clamps it.
+
+The tables' plane 1 holds packed normals bitcast to float32, some of them
+denormal: both versions move 32-bit words (the plain one through
+``torch.int32`` views), so the copy is bit-exact.
+
+CUDA tensors go to the hand-written kernel (`csrc/window_slice.cu`), CPU
+tensors to the plain PyTorch version; neither falls back to the other.
+"""
+
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+from topo_renderer_tpu_torch import cuda_build
+
+MAX_LEVELS = 16  # csrc/window_slice.cu's parameter-struct capacity
+
+
+def window_slice_multi_plain(tables, origins, *, wsy: int, wsx: int):
+    """Plain PyTorch version: clamp each origin into its table, then
+    slice the int32 view of each table. ``origins`` ``i32[L, 2]`` rows are
+    (sy, sx). Reads the origins on the host."""
+    out = []
+    for table, (sy, sx) in zip(tables, origins.tolist()):
+        h, w = table.shape[-2], table.shape[-1]
+        sy = min(max(sy, 0), h - wsy)
+        sx = min(max(sx, 0), w - wsx)
+        bits = table.view(torch.int32)[..., sy : sy + wsy, sx : sx + wsx]
+        out.append(bits.contiguous().view(table.dtype))
+    return tuple(out)
+
+
+_lib = None
+
+
+def _kernel_lib():
+    global _lib
+    if _lib is None:
+        lib = cuda_build.load("window_slice")
+        p, i = ctypes.c_void_p, ctypes.c_int
+        lib.window_slice_multi.argtypes = [i, p, p, p, p, p, p, i, i, p]
+        lib.window_slice_multi.restype = ctypes.c_int
+        lib.error_string.argtypes = [ctypes.c_int]
+        lib.error_string.restype = ctypes.c_char_p
+        _lib = lib
+    return _lib
+
+
+def _check_inputs(tables, origins, wsy, wsx):
+    if not 1 <= len(tables) <= MAX_LEVELS:
+        raise ValueError(f"window_slice takes 1..{MAX_LEVELS} tables, got {len(tables)}")
+    if origins.dtype != torch.int32 or tuple(origins.shape) != (len(tables), 2):
+        raise ValueError(f"origins must be int32 [{len(tables)}, 2], got {origins.dtype} {tuple(origins.shape)}")
+    for t in tables:
+        if t.dim() not in (2, 3) or t.element_size() != 4:
+            raise ValueError("window_slice takes [H, W] or [C, H, W] tables of 32-bit words")
+        if t.device != origins.device:
+            raise ValueError("tables and origins must share one device")
+        if t.shape[-2] < wsy or t.shape[-1] < wsx:
+            raise ValueError(f"window ({wsy}, {wsx}) exceeds table {tuple(t.shape)}")
+
+
+def _launch(tables, origins, wsy, wsx):
+    if origins.device.type != "cuda":
+        raise ValueError(f"window_slice runs on CPU or CUDA, not {origins.device}")
+    for t in (*tables, origins):
+        if not t.is_contiguous():
+            raise ValueError("window_slice's CUDA kernel takes contiguous tensors")
+    lib = _kernel_lib()
+    n = len(tables)
+    outs = [
+        torch.empty(t.shape[:-2] + (wsy, wsx), dtype=t.dtype, device=t.device) for t in tables
+    ]
+    ptrs = ctypes.c_void_p * n
+    ints = ctypes.c_int * n
+    with torch.cuda.device(origins.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        err = lib.window_slice_multi(
+            n,
+            ptrs(*(t.data_ptr() for t in tables)),
+            ptrs(*(o.data_ptr() for o in outs)),
+            ints(*(t.shape[0] if t.dim() == 3 else 1 for t in tables)),
+            ints(*(t.shape[-2] for t in tables)),
+            ints(*(t.shape[-1] for t in tables)),
+            origins.data_ptr(), wsy, wsx, stream,
+        )
+    if err:
+        raise RuntimeError(f"window_slice launch failed: {lib.error_string(err).decode()}")
+    return tuple(outs)
+
+
+def window_slice_multi(tables, origins, *, wsy: int, wsx: int):
+    """Slice the same-size window out of each of L tables in one launch
+    (K2). ``tables``: sequence of ``[C, H_l, W_l]`` or ``[H_l, W_l]``
+    tensors of 32-bit words; ``origins``: ``i32[L, 2]`` (sy, sx) rows.
+    Returns a tuple of ``[..., wsy, wsx]`` windows."""
+    tables = tuple(tables)
+    _check_inputs(tables, origins, wsy, wsx)
+    if origins.device.type == "cpu":
+        return window_slice_multi_plain(tables, origins, wsy=wsy, wsx=wsx)
+    outs = _launch(tables, origins, wsy, wsx)
+    window_slice_multi.launches += 1
+    return outs
+
+
+def window_slice(table, origin, *, wsy: int, wsx: int):
+    """One bounded window copy (K4): ``origin`` is ``i32[2]`` (sy, sx).
+    On CUDA this is the L = 1 launch of the K2 kernel."""
+    origins = origin.reshape(1, 2)
+    _check_inputs((table,), origins, wsy, wsx)
+    if origins.device.type == "cpu":
+        return window_slice_multi_plain((table,), origins, wsy=wsy, wsx=wsx)[0]
+    out = _launch((table,), origins.contiguous(), wsy, wsx)[0]
+    window_slice.launches += 1
+    return out
+
+
+window_slice_multi.launches = 0  # kernel launches (CPU calls do not count)
+window_slice.launches = 0
