@@ -5,16 +5,27 @@
 
 Phases (any failure exits non-zero):
   1. the card's name and power limit (nvidia-smi), torch and CUDA versions;
-  2. build every CUDA kernel of the panorama path from ``topo_renderer_tpu_torch/csrc``;
+  2. build every CUDA kernel of the panorama paths from ``topo_renderer_tpu_torch/csrc``
+     (one nvcc per source, all started together);
   3. hold each kernel against its plain PyTorch version on the card at the
-     shapes the panorama gives it: K1 (crossing search) and K2/K4 (window
-     copies) must agree exactly, bit for bit;
-  4. drive the engine: 100 COP-90-shaped tiles (10 x 10 tiles of 1201^2
-     texels at 3", a 12001^2 mosaic), ~256 peaks, three 4096 x 1024
-     atmospheric LOD panoramas of 512 steps with labels; every frame must
-     launch K1 and K2 once, hit terrain and sky, and carry labels. A small
-     scene rendered on the card and on the CPU (plain versions) must agree;
-  5. time each kernel, its plain version and the frame with CUDA events and
+     shapes the panoramas give it: K1 (crossing search), K2/K4 (window
+     copies) and K3 (the batched window copy, 256 viewpoints) must agree
+     exactly, bit for bit;
+  4. drive the engine on 100 COP-90-shaped tiles (10 x 10 tiles of 1201^2
+     texels at 3", a 12001^2 mosaic) and ~256 peaks:
+     a. three 4096 x 1024 atmospheric LOD panoramas of 512 steps with
+        labels; every frame must launch K1 and K2 once, hit terrain and
+        sky, and carry labels;
+     b. config 5: `render_batch` of 256 viewpoints at 1024 x 256, 512
+        steps, atmosphere; one call launches K3 once, K2 never and K1 256
+        times, sampled eyes equal their single-eye render bit for bit, and
+        the call's panoramas/s is printed;
+     c. the non-clipmap fallback: `render_batch` of 4 viewpoints with
+        ``PanoramaSpec(1024, 256, n_steps=512, n_refine=2)``; K1 never
+        launches and each eye equals its single-eye render.
+     Small scenes rendered on the card and on the CPU (plain versions) must
+     agree, for the fast preset and for the fallback's spec;
+  5. time each kernel, its plain version and the paths with CUDA events and
      print the ``kernels`` JSON line.
 
 The last line is ``{"ok": true, "device": {...}}``. Without CUDA, or without
@@ -205,10 +216,25 @@ def check_crossing():
     nbytes = crossing_bytes(e, want[0])
     log(f"K1 crossing_search: exact on N={e.shape[0]} W={e.shape[1]} H={t.shape[0]}; "
         f"{ms:.4f} ms (plain {plain_ms:.3f} ms), {nbytes / 1e6:.2f} MB needed")
+    # The batch path's shape: 1024x256 panoramas with profile stride 2.
+    eb, b0, b1, b2, tb = crossing_inputs(n=512, ws=512, h=256)
+    want_b = K.crossing_search_plain(eb, b0, b1, b2, tb)
+    if not all(torch.equal(g, w) for g, w in zip(K.crossing_search(eb, b0, b1, b2, tb), want_b)):
+        raise AssertionError("K1 differs from the plain version at the batch path's shape")
+    batch_shape = dict(
+        shape=[512, 512, 256],
+        ms=cuda_ms(lambda: K.crossing_search(eb, b0, b1, b2, tb), iters=200, warmup=3),
+        plain_ms=cuda_ms(lambda: K.crossing_search_plain(eb, b0, b1, b2, tb), iters=3),
+        bound_ms=1e3 * crossing_bytes(eb, want_b[0]) / HBM_BYTES_PER_S,
+    )
+    log(f"K1 crossing_search: exact on N=512 W=512 H=256 (the batch path's shape); "
+        f"{batch_shape['ms']:.4f} ms (plain {batch_shape['plain_ms']:.3f} ms, bound "
+        f"{batch_shape['bound_ms']:.5f} ms)")
     return dict(
         name="crossing_search", route="cuda", source="topo_renderer_tpu_torch/csrc/crossing.cu",
         replaces="topo_renderer_tpu/ops/pallas_crossing.py:124", max_abs_err=err, ms=ms,
         plain_ms=plain_ms, bound_ms=1e3 * nbytes / HBM_BYTES_PER_S, bound_by="bytes", library_ms=None,
+        batch_shape=batch_shape,
     )
 
 
@@ -267,24 +293,81 @@ def check_window_slice():
     ]
 
 
-# ---- phase 4: the engine's panorama -----------------------------------------
+def batched_origins(tables, batch, wsy, wsx):
+    """Random (8, 128)-aligned origins for every viewpoint and level, with
+    some clamped (past either edge) and some unaligned ones planted."""
+    import torch
 
-def reset_counts():
-    from topo_renderer_tpu_torch.ops import crossing, window_slice
+    rng = np.random.default_rng(SEED + 4)
+    origins = np.stack([
+        np.stack([rng.integers(0, (t.shape[1] - wsy) // 8, batch) * 8,
+                  rng.integers(0, (t.shape[2] - wsx) // 128, batch) * 128], axis=-1)
+        for t in tables
+    ], axis=1).astype(np.int32)  # [B, L, 2]
+    h0, w0 = tables[0].shape[1:]
+    origins[5, 0] = (h0 - wsy + 13, w0 - wsx + 300)  # past the far edge
+    origins[9, 2] = (-5, -700)  # before the origin
+    origins[17, 1] = (1001, 333)  # unaligned
+    origins[-1, :, 1] += 7  # unaligned columns on every level
+    return torch.from_numpy(origins).cuda()
 
-    crossing.crossing_search.launches = 0
-    window_slice.window_slice_multi.launches = 0
-    window_slice.window_slice.launches = 0
+
+def check_window_slice_batched(batch=256):
+    import torch
+
+    from topo_renderer_tpu_torch.ops import window_slice as K
+
+    tables = window_tables()
+    wsy, wsx = 272, 512
+    org = batched_origins(tables, batch, wsy, wsx)
+    got = K.window_slice_multi_batched(tables, org, wsy=wsy, wsx=wsx)
+    torch.cuda.synchronize()
+    want = K.window_slice_multi_batched_plain(tables, org, wsy=wsy, wsx=wsx)
+    for level, (g, w) in enumerate(zip(got, want)):
+        if g.shape != (batch, 2, wsy, wsx) or not torch.equal(g.view(torch.int32), w.view(torch.int32)):
+            raise AssertionError(f"K3 level {level}: window bits differ from the plain version")
+    del got, want
+    ms3 = cuda_ms(lambda: K.window_slice_multi_batched(tables, org, wsy=wsy, wsx=wsx), iters=20, warmup=2)
+    plain3 = cuda_ms(lambda: K.window_slice_multi_batched_plain(tables, org, wsy=wsy, wsx=wsx), iters=2)
+    k2_loop = cuda_ms(lambda: [K.window_slice_multi(tables, org[b], wsy=wsy, wsx=wsx) for b in range(batch)],
+                      iters=3)
+    nbytes = 2 * len(tables) * batch * 2 * wsy * wsx * 4  # read once, written once
+    log(f"K3 window_slice_multi_batched: bit-exact on B={batch} x {len(tables)} levels; {ms3:.4f} ms "
+        f"(plain {plain3:.3f} ms, {batch} x K2 {k2_loop:.3f} ms), {nbytes / 1e9:.3f} GB moved, "
+        f"{nbytes / (ms3 * 1e-3) / 1e12:.2f} TB/s")
+    return dict(
+        name="window_slice_multi_batched", route="cuda", source="topo_renderer_tpu_torch/csrc/window_slice.cu",
+        replaces="topo_renderer_tpu/ops/pallas_dma.py:113", max_abs_err=0.0, ms=ms3, plain_ms=plain3,
+        bound_ms=1e3 * nbytes / HBM_BYTES_PER_S, bound_by="bytes", library_ms=None, k2_loop_ms=k2_loop,
+    )
 
 
-def read_counts():
+# ---- phase 4: the engine's panoramas ------------------------------------------
+
+def _counted():
     from topo_renderer_tpu_torch.ops import crossing, window_slice
 
     return {
-        "crossing_search": crossing.crossing_search.launches,
-        "window_slice_multi": window_slice.window_slice_multi.launches,
-        "window_slice": window_slice.window_slice.launches,
+        "crossing_search": crossing.crossing_search,
+        "window_slice_multi": window_slice.window_slice_multi,
+        "window_slice_multi_batched": window_slice.window_slice_multi_batched,
+        "window_slice": window_slice.window_slice,
     }
+
+
+def reset_counts():
+    for fn in _counted().values():
+        fn.launches = 0
+
+
+def read_counts():
+    return {name: fn.launches for name, fn in _counted().items()}
+
+
+def expect_counts(what, counts, want):
+    for name, n in want.items():
+        if counts[name] != n:
+            raise AssertionError(f"{what}: {name} launched {counts[name]} times, not {n}")
 
 
 def frame_profile(render, top=12):
@@ -309,10 +392,8 @@ def frame_profile(render, top=12):
         log(f"  {e.self_device_time_total / 1e3:8.3f} ms  x{e.count:<4d} {e.key[:90]}")
 
 
-def main_path(frames=3):
+def build_scene():
     import torch
-
-    from topo_renderer_tpu_torch.ops.panorama import PanoramaSpec
 
     t0 = time.perf_counter()
     tiles = make_tiles()
@@ -329,23 +410,30 @@ def main_path(frames=3):
         f"{torch.cuda.memory_allocated() / 1e9:.2f} GB allocated")
     if mosaic.shape != (12001, 12001):
         raise AssertionError(f"mosaic shape {mosaic.shape} != (12001, 12001)")
+    return engine, (c_lat, c_lon)
 
-    cam = camera_at(c_lat, c_lon, 300.0)
+
+def panorama_path(engine, centre, frames=3):
+    """Phase 4a: the labelled 4096 x 1024 panorama. Returns the launch
+    counts of one frame and the frame's time by CUDA events."""
+    import torch
+
+    from topo_renderer_tpu_torch.ops.panorama import PanoramaSpec
+
+    cam = camera_at(*centre, 300.0)
     spec = PanoramaSpec.fast(4096, 1024, n_steps=512)
     engine.render_panorama(cam, spec, fog="atmosphere")  # first frame: allocator warm-up
     torch.cuda.synchronize()
-    reset_counts()
-    times = []
+    per_frame = None
     for i in range(frames):
-        before = read_counts()
+        reset_counts()
         t0 = time.perf_counter()
         res = engine.render_panorama(cam, spec, fog="atmosphere")
         torch.cuda.synchronize()
-        times.append(1e3 * (time.perf_counter() - t0))
-        after = read_counts()
-        for k in ("crossing_search", "window_slice_multi"):
-            if after[k] - before[k] != 1:
-                raise AssertionError(f"frame {i}: {k} launched {after[k] - before[k]} times, not once")
+        ms = 1e3 * (time.perf_counter() - t0)
+        per_frame = read_counts()
+        expect_counts(f"frame {i}", per_frame, {"crossing_search": 1, "window_slice_multi": 1,
+                                                "window_slice_multi_batched": 0})
         hit = float(res.hit.mean())
         colors = len(np.unique(res.color.reshape(-1, 3), axis=0))
         n_labels = sum(len(v) for v in res.visible_labels.values())
@@ -353,14 +441,108 @@ def main_path(frames=3):
             raise AssertionError(f"frame {i}: bad color output")
         if not 0.0 < hit < 1.0 or colors <= 200 or n_labels < 1:
             raise AssertionError(f"frame {i}: hit {hit:.3f}, {colors} colours, {n_labels} labels")
-        log(f"frame {i}: {times[-1]:.1f} ms host clock, hit {hit:.3f}, {colors} colours, {n_labels} labels")
-    counts = read_counts()
+        log(f"frame {i}: {ms:.1f} ms host clock, hit {hit:.3f}, {colors} colours, {n_labels} labels")
     frame_ms = cuda_ms(lambda: engine.render_panorama(cam, spec, fog="atmosphere"), iters=5)
     log(f"frame (CUDA events, 5 frames): {frame_ms:.2f} ms")
     frame_profile(lambda: engine.render_panorama(cam, spec, fog="atmosphere"))
-    del engine, mosaic
-    torch.cuda.empty_cache()
-    return counts, frame_ms
+    return per_frame, frame_ms
+
+
+def batch_eyes(centre, count, alt=2500.0):
+    """``count`` viewpoints spread +-0.8 deg around ``centre`` at ``alt``
+    metres above the sphere, as bench.py's config 5 places them
+    (`scripts/perf_probe.py::eye_at`). Draws over terrain higher than
+    ``alt - 300`` are skipped, so no eye sits inside a ridge."""
+    import torch
+
+    rng = np.random.default_rng(SEED + 5)
+    eyes = []
+    while len(eyes) < count:
+        lat, lon = centre[0] + rng.uniform(-0.8, 0.8), centre[1] + rng.uniform(-0.8, 0.8)
+        if float(terrain(np.array(lat), np.array(lon))) > alt - 300.0:
+            continue
+        lam, phi = np.radians(lon), np.radians(lat)
+        r = 6_371_000.0 + alt
+        eyes.append((r * np.cos(phi) * np.cos(lam), r * np.cos(phi) * np.sin(lam), r * np.sin(phi)))
+    return torch.tensor(np.asarray(eyes, np.float32), device="cuda")
+
+
+def batch_path(engine, centre, batch=256):
+    """Phase 4b, config 5: ``render_batch`` of ``batch`` viewpoints. Returns
+    the launch counts of one call, the call's time by CUDA events and
+    panoramas/s."""
+    import torch
+
+    from topo_renderer_tpu_torch.ops.panorama import EYES_PER_LAUNCH, PanoramaSpec, render_panorama
+
+    spec = PanoramaSpec.fast(1024, 256, n_steps=512)
+    eyes = batch_eyes(centre, batch)
+    suns = torch.tensor([[0.3, 0.5, 0.8]], device="cuda").expand(batch, 3).contiguous()
+    engine.render_batch(eyes[:8], spec, suns[:8], fog="atmosphere")  # allocator warm-up
+    torch.cuda.synchronize()
+    reset_counts()
+    t0 = time.perf_counter()
+    colors = engine.render_batch(eyes, spec, suns, fog="atmosphere")
+    torch.cuda.synchronize()
+    first_s = time.perf_counter() - t0
+    counts = read_counts()
+    launches_k3 = -(-batch // EYES_PER_LAUNCH)
+    expect_counts("batch", counts, {"window_slice_multi_batched": launches_k3, "window_slice_multi": 0,
+                                    "crossing_search": batch})
+    if colors.shape != (batch, 256, 1024, 3) or not bool(torch.isfinite(colors).all()):
+        raise AssertionError(f"batch: bad colour output {tuple(colors.shape)}")
+    sky_rgb = None
+    for b in (0, batch // 2 - 1, batch - 1):
+        one = render_panorama(engine.mosaic, eyes[b], spec, suns[b], fog="atmosphere")
+        if not torch.equal(colors[b], one["color"]):
+            raise AssertionError(f"batch eye {b} differs from its single-eye render")
+        if sky_rgb is None:
+            sky = one["color"][~one["hit"]]
+            sky_rgb = torch.unique(sky, dim=0, return_counts=True)
+            sky_rgb = sky_rgb[0][sky_rgb[1].argmax()]
+    sky_share = (colors == sky_rgb).all(dim=-1).float().mean(dim=(1, 2))
+    if not bool(((sky_share > 0.0) & (sky_share < 1.0)).all()):
+        raise AssertionError(f"batch: an eye without terrain or sky (sky share {sky_share.min():.3f}"
+                             f"..{sky_share.max():.3f})")
+    del colors
+    batch_ms = cuda_ms(lambda: engine.render_batch(eyes, spec, suns, fog="atmosphere"), iters=1, warmup=0)
+    log(f"batch (config 5): {batch} eyes, first call {first_s:.2f} s host clock, timed call "
+        f"{batch_ms / 1e3:.3f} s (CUDA events) = {batch / (batch_ms * 1e-3):.1f} panoramas/s; "
+        f"eyes 0/{batch // 2 - 1}/{batch - 1} equal their single-eye renders; sky share "
+        f"{float(sky_share.min()):.3f}..{float(sky_share.max()):.3f}")
+    frame_profile(lambda: engine.render_batch(eyes[:16], spec, suns[:16], fog="atmosphere"))
+    return counts, batch_ms, batch / (batch_ms * 1e-3)
+
+
+def fallback_path(engine, centre, batch=4):
+    """Phase 4c: ``render_batch`` with a spec that is not clipmapped."""
+    import dataclasses
+
+    import torch
+
+    from topo_renderer_tpu_torch.ops.panorama import PanoramaSpec, render_panorama
+
+    spec = PanoramaSpec(width=1024, height=256, n_steps=512, n_refine=2)
+    eyes = batch_eyes(centre, batch)
+    suns = torch.tensor([[0.3, 0.5, 0.8]], device="cuda").expand(batch, 3).contiguous()
+    reset_counts()
+    t0 = time.perf_counter()
+    colors = engine.render_batch(eyes, spec, suns, fog="atmosphere")
+    torch.cuda.synchronize()
+    call_s = time.perf_counter() - t0
+    counts = read_counts()
+    expect_counts("fallback", counts, {"crossing_search": 0, "window_slice_multi": 0,
+                                       "window_slice_multi_batched": 0})
+    if colors.shape != (batch, 256, 1024, 3) or not bool(torch.isfinite(colors).all()):
+        raise AssertionError("fallback: bad colour output")
+    vspec = dataclasses.replace(spec, use_pallas=False)
+    for b in range(batch):
+        if not torch.equal(colors[b], render_panorama(engine.mosaic, eyes[b], vspec, suns[b],
+                                                       fog="atmosphere")["color"]):
+            raise AssertionError(f"fallback eye {b} differs from its single-eye render")
+    log(f"fallback: {batch} eyes at 1024x256, 512 steps, n_refine=2 in {call_s:.2f} s host clock; "
+        f"K1 not launched; every eye equals its single-eye render")
+    return counts
 
 
 def small_scene_agreement():
@@ -375,20 +557,21 @@ def small_scene_agreement():
     tiles = make_tiles(lat0=46, lon0=11, tiles=2, n=301)
     peaks = make_peaks(47.0, 12.0, 16, 0.1, 46, 11, 2)
     cam = camera_at(47.0, 12.0, 300.0)
-    spec = PanoramaSpec.fast(512, 128, n_steps=256)
-    res = {}
-    for dev in ("cuda", "cpu"):
-        engine = build_engine(dev, tiles, peaks)
-        res[dev] = engine.render_panorama(cam, spec, fog="atmosphere")
-    g, c = res["cuda"], res["cpu"]
-    hit_agree = float((g.hit == c.hit).mean())
-    both = g.hit & c.hit
-    rel = np.abs(g.depth - c.depth)[both].max() if both.any() else 0.0
-    if hit_agree < 0.99 or rel > 1e-3:
-        raise AssertionError(f"small scene: card vs CPU hit agreement {hit_agree:.4f}, depth diff {rel:.2e}")
-    n_g, n_c = (sum(len(v) for v in r.visible_labels.values()) for r in (g, c))
-    log(f"small scene: card vs CPU hit agreement {hit_agree:.4f}, max depth diff {rel:.2e}, "
-        f"labels {n_g} / {n_c}")
+    engines = {dev: build_engine(dev, tiles, peaks) for dev in ("cuda", "cpu")}
+    specs = {"fast": PanoramaSpec.fast(512, 128, n_steps=256),
+             "fallback": PanoramaSpec(width=1024, height=256, n_steps=512, n_refine=2)}
+    for name, spec in specs.items():
+        g, c = (engines[dev].render_panorama(cam, spec, fog="atmosphere") for dev in ("cuda", "cpu"))
+        hit_agree = float((g.hit == c.hit).mean())
+        both = g.hit & c.hit
+        rel = np.abs(g.depth - c.depth)[both].max() if both.any() else 0.0
+        if hit_agree < 0.99 or rel > 1e-3 or not 0.0 < g.hit.mean() < 1.0:
+            raise AssertionError(f"small scene {name}: card vs CPU hit agreement {hit_agree:.4f}, "
+                                 f"depth diff {rel:.2e}, hit {g.hit.mean():.3f}")
+        n_g, n_c = (sum(len(v) for v in r.visible_labels.values()) for r in (g, c))
+        log(f"small scene {name}: card vs CPU hit agreement {hit_agree:.4f}, max depth diff {rel:.2e}, "
+            f"labels {n_g} / {n_c}")
+    del engines
     torch.cuda.empty_cache()
 
 
@@ -419,16 +602,36 @@ def main() -> int:
             if "registers" in line or "spill" in line:
                 log(f"  {name}: {line.strip()}")
 
-    kernels = [check_crossing(), *check_window_slice()]
+    k1 = check_crossing()
+    k2, k4 = check_window_slice()
+    torch.cuda.empty_cache()
+    k3 = check_window_slice_batched()
     torch.cuda.empty_cache()
     small_scene_agreement()
-    counts, frame_ms = main_path()
+    engine, centre = build_scene()
+    per_call = {}
+    per_call["panorama"], frame_ms = panorama_path(engine, centre)
+    per_call["batch"], batch_ms, panos_per_s = batch_path(engine, centre)
+    per_call["fallback"] = fallback_path(engine, centre)
+    del engine
+    torch.cuda.empty_cache()
+    # ``launches``: one call of the path each kernel serves (K3 and K1: the
+    # batch; K2: the single panorama); every path's count is in
+    # ``launches_per_call``. ``ms``/``bound_ms`` of K1 are at config 4's
+    # shape, ``batch_shape`` holds them at the batch path's.
+    path_of = {"crossing_search": "batch", "window_slice_multi": "panorama",
+               "window_slice_multi_batched": "batch", "window_slice": "panorama"}
+    kernels = [k1, k2, k3, k4]
     for k in kernels:
-        k["launches"] = counts[k["name"]]
+        k["launches"] = per_call[path_of[k["name"]]][k["name"]]
+        k["launches_per_call"] = {path: c[k["name"]] for path, c in per_call.items()}
     order = ("name", "route", "source", "replaces", "launches", "max_abs_err", "ms", "plain_ms",
-             "bound_ms", "bound_by", "library_ms")
-    log(f"frame: {frame_ms:.2f} ms (CUDA events)")
-    print(json.dumps({"kernels": [{key: k[key] for key in order} for k in kernels]}), flush=True)
+             "bound_ms", "bound_by", "library_ms", "launches_per_call", "batch_shape")
+    log(f"frame: {frame_ms:.2f} ms (CUDA events); config 5: {panos_per_s:.1f} panoramas/s "
+        f"({batch_ms:.1f} ms per call of 256 viewpoints); "
+        f"K3 {k3['ms']:.4f} ms vs 256 x K2 {k3['k2_loop_ms']:.3f} ms")
+    print(json.dumps({"kernels": [{key: k[key] for key in order if key in k} for k in kernels]}),
+          flush=True)
     print(card, flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
                                              "count": torch.cuda.device_count()}}), flush=True)

@@ -80,11 +80,16 @@ def test_cpu_path_launches_no_kernel():
         GeoLocation.from_coord(47, 11), heights,
         CoordinateTransform((0.0, 0.0), (11.0, 47.0 + span), (ps, ps)),
     )
-    for f in (crossing.crossing_search, window_slice.window_slice_multi, window_slice.window_slice):
+    counters = (crossing.crossing_search, window_slice.window_slice_multi,
+                window_slice.window_slice_multi_batched, window_slice.window_slice)
+    for f in counters:
         f.launches = 0
     cam = Camera().reset(GeoCoord(47.0 + span / 2, 11.0 + span / 4), 2300.0)
-    res = engine.render_panorama(cam, PanoramaSpec.fast(64, 16, n_steps=64), fog="atmosphere")
+    spec = PanoramaSpec.fast(64, 16, n_steps=64, clipmap_threshold=0)
+    res = engine.render_panorama(cam, spec, fog="atmosphere")
     assert res.color.shape == (16, 64, 3)
     assert res.hit.any()
-    assert (crossing.crossing_search.launches, window_slice.window_slice_multi.launches,
-            window_slice.window_slice.launches) == (0, 0, 0)
+    eyes = torch.stack([cam.eye, cam.eye * 1.0001])
+    batch = engine.render_batch(eyes, spec, torch.stack([cam.sun_angle.to_vec3()] * 2))
+    assert batch.shape == (2, 16, 64, 3) and batch.device.type == "cpu"
+    assert [f.launches for f in counters] == [0, 0, 0, 0]

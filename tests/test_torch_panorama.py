@@ -1,4 +1,4 @@
-"""Port's LOD panorama vs the JAX reference and its golden frame.
+"""Port's panorama vs the JAX reference and its golden frame.
 
 The JAX mosaic is carried across with `mosaic_from_arrays`, so both sides
 render from the same tables.
@@ -106,23 +106,33 @@ def test_window_path_scene():
 @pytest.fixture(scope="module")
 def tiny_scene():
     mosaic, cam, _ = small_scene(n=17, span_deg=0.02, height_above=300.0)
-    return (
-        jax_mosaic_to_port(mosaic),
-        torch.from_numpy(np.array(cam.eye)),
-        torch.from_numpy(np.array(cam.sun_angle.to_vec3())),
-    )
+    return mosaic, np.array(cam.eye, np.float32), np.array(cam.sun_angle.to_vec3(), np.float32)
+
+
+TINY = dict(width=32, height=16, n_steps=64)
 
 
 @pytest.mark.parametrize(
-    "spec",
+    "fast, spec_kw",
     [
-        PanoramaSpec(width=32, height=16, n_steps=64, n_refine=0),  # non-LOD branch
-        PanoramaSpec.fast(width=32, height=16, n_steps=64, n_refine=2),
-        PanoramaSpec.fast(width=32, height=16, n_steps=64, use_pallas=False),
-        PanoramaSpec.fast(width=32, height=16, n_steps=64, attrs_from_profile=False),
+        (False, dict(n_refine=0)),  # non-LOD branch: exact-surface profile, reductions
+        (True, dict(n_refine=2)),  # bisection refinement after K1
+        (True, dict(use_pallas=False)),  # packed-key reduction crossing
+        (True, dict(attrs_from_profile=False)),  # height-only LOD profile, per-pixel attributes
     ],
+    ids=["non_lod", "refine", "reductions", "no_profile_attrs"],
 )
-def test_unported_specs_raise(tiny_scene, spec):
+def test_other_panorama_branches(tiny_scene, fast, spec_kw):
+    """The branches beside the fast preset, at the golden tolerance."""
     mosaic, eye, sun = tiny_scene
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        render_panorama(mosaic, eye, spec, sun)
+    js, ps = (JaxSpec.fast, PanoramaSpec.fast) if fast else (JaxSpec, PanoramaSpec)
+    js, ps = js(**TINY, **spec_kw), ps(**TINY, **spec_kw)
+    po = render_panorama(jax_mosaic_to_port(mosaic), torch.from_numpy(eye), ps, torch.from_numpy(sun),
+                         fog="atmosphere")
+    out = {"port": (to_srgb8_image(po["color"]).numpy(), po["hit"].numpy())}
+    jo = jax_render(mosaic, eye, js, sun, fog="atmosphere")
+    out["jit"] = (np.asarray(jax_srgb8(jo["color"])), np.asarray(jo["hit"]))
+    with jax.disable_jit():
+        jo = jax_render(mosaic, eye, js, sun, fog="atmosphere")
+        out["eager"] = (np.asarray(jax_srgb8(jo["color"])), np.asarray(jo["hit"]))
+    check_frames(out)

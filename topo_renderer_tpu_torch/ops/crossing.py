@@ -11,6 +11,10 @@ max (m_lo) and the payloads there. Rows that never cross ("sky") get
 `crossing_search` launches the hand-written CUDA kernel
 (`csrc/crossing.cu`) for CUDA tensors and runs `crossing_search_plain` for
 CPU tensors; it never falls back from one to the other.
+
+`crossing_reductions` is the JAX package's other crossing form
+(`panorama.py:556-581`, ``use_pallas=False``): global reductions over the
+running max, in plain PyTorch on either device.
 """
 
 from __future__ import annotations
@@ -22,6 +26,10 @@ import torch
 from topo_renderer_tpu_torch import cuda_build
 
 M_INIT = -3.0e38  # running-max start value of the TPU kernel
+BIG = 3.0e38  # the reductions' empty-set values (theta_hi of sky rows, -m_lo)
+BIGKEY = 16777216.0  # 2^24: the packed key of a sky row (k = 16384)
+# Cap on the elements of one [N, rows, W] temporary of the reductions.
+REDUCE_CHUNK_ELEMS = 1 << 24
 
 
 def crossing_search_plain(e_prof, a0, a1, a2, thresh):
@@ -113,6 +121,51 @@ def crossing_search(e_prof, a0, a1, a2, thresh):
     if err:
         raise RuntimeError(f"crossing_search launch failed: {lib.error_string(err).decode()}")
     return tuple(outs)
+
+
+def crossing_reductions(m_prof, thresh, payloads=None):
+    """First crossings as global reductions over the running max
+    ``m_prof f32[N, W]`` (non-decreasing in k) for row thresholds
+    ``thresh f32[H]`` (`panorama.py:525-581`). Because the running max is
+    non-decreasing, the first k with ``M_k > t`` satisfies
+      theta_hi = min{M_k : M_k > t},  m_lo = max{M_k : M_k <= t},
+      k*       = #{k : M_k <= t}.
+    With ``payloads`` (three ``f32[N, W]`` planes of 10-bit codes) k* and
+    the payloads at k* come from packed-key minima ``k * 1024 + code`` over
+    the tail {k : M_k > t}: the min lands on k* and its code rides along
+    exactly (keys stay below 2^24). Sky rows get theta_hi = 3e38, kstar = N
+    (16384 with payloads) and payload 0; m_lo = -3e38 where k* = 0.
+
+    The reductions broadcast ``[N, H, W]``; XLA fuses the compare into them,
+    eager PyTorch would materialise it. So rows go in chunks whose
+    temporaries hold at most ``REDUCE_CHUNK_ELEMS`` (2^24) elements, 64 MB
+    in float32. Min, max, a count and the key min are exact, so the chunked
+    result equals the unchunked one bit for bit.
+
+    Returns (kstar, theta_hi, m_lo, payloads at k* or None), ``f32[H, W]``.
+    """
+    n, w = m_prof.shape
+    if payloads is not None and n > 16384:
+        raise ValueError("attrs_from_profile supports n_steps <= 16384")
+    rows = max(1, REDUCE_CHUNK_ELEMS // max(1, n * w))
+    m3 = m_prof[:, None, :]  # [N, 1, W]
+    kk = None
+    if payloads is not None:
+        kk = (torch.arange(n, dtype=torch.float32, device=m_prof.device) * 1024.0)[:, None, None]
+    parts = []
+    for r0 in range(0, thresh.shape[0], rows):
+        le = m3 <= thresh[r0 : r0 + rows][None, :, None]  # [N, rows, W]
+        theta_hi = torch.where(le, BIG, m3).amin(dim=0)
+        m_lo = torch.where(le, m3, -BIG).amax(dim=0)
+        if payloads is None:
+            parts.append((le.sum(dim=0).to(torch.float32), theta_hi, m_lo))
+            continue
+        picks = [torch.where(le, BIGKEY, kk + comp[:, None, :]).amin(dim=0) for comp in payloads]
+        kstar = torch.floor(picks[0] / 1024.0)  # exact; 16384 where sky
+        codes = [p - torch.floor(p / 1024.0) * 1024.0 for p in picks]
+        parts.append((kstar, theta_hi, m_lo, *codes))
+    out = [torch.cat(c, dim=0) for c in zip(*parts)]
+    return out[0], out[1], out[2], (tuple(out[3:]) if payloads is not None else None)
 
 
 crossing_search.launches = 0  # kernel launches (CPU calls do not count)

@@ -1,20 +1,25 @@
-"""Cylindrical panorama renderer: great-circle column marching (LOD path).
+"""Cylindrical panorama renderer: great-circle column marching.
 
-Port of the LOD path of `topo_renderer_tpu/ops/panorama.py`. Every vertical
-image column of a panorama lies in a plane through the eye and the Earth's
-centre, so one column needs:
+Port of `topo_renderer_tpu/ops/panorama.py`. Every vertical image column of
+a panorama lies in a plane through the eye and the Earth's centre, so one
+column needs:
 
-  1. a 1-D profile of terrain elevation ratios (tan e) along its ground
-     trace, sampled from the distance-matched mip level through eye-centred
-     clipmap windows (`extract_clipmap_windows`, kernel K2);
+  1. a 1-D profile of terrain elevation along its ground trace: for LOD
+     specs tan-elevation ratios sampled from the distance-matched mip level,
+     through eye-centred clipmap windows where a level is large
+     (`extract_clipmap_windows`, kernel K2; for a batch of viewpoints
+     `extract_clipmap_windows_batched`, kernel K3); otherwise elevation
+     angles of the triangle-exact surface (`_surface_elevation`);
   2. per pixel row, the first profile step whose running max exceeds the
-     row's tan(elevation) (`ops/crossing.py`, kernel K1);
-  3. the hit height from the crossing geometry, the normal carried by the
-     profile sample, then shading, fog and postprocessing.
+     row's threshold: kernel K1 (`ops/crossing.py::crossing_search`) for
+     specs whose profile carries the shading attributes, the global
+     reductions (`ops/crossing.py::crossing_reductions`) otherwise;
+  3. optionally ``n_refine`` bisection steps against the true surface,
+     then the hit height and normal (from the profile sample, or sampled
+     per pixel from the mosaic), shading, fog and postprocessing.
 
-Only the LOD spec with profile-carried attributes (`PanoramaSpec.fast`) is
-ported. The non-LOD branch, per-pixel refinement and the reduction-based
-crossing raise NotImplementedError (ROADMAP.md, slice 1 deferred parts).
+`render_batch_scan` renders B viewpoints: one K3 launch extracts every
+eye's windows, then each eye renders from its own windows.
 """
 
 from __future__ import annotations
@@ -26,7 +31,7 @@ import torch
 
 from topo_renderer_tpu_torch.models.camera import FAR, NEAR, depth_from_dist
 from topo_renderer_tpu_torch.ops import shading as shd
-from topo_renderer_tpu_torch.ops.crossing import crossing_search
+from topo_renderer_tpu_torch.ops.crossing import crossing_reductions, crossing_search
 from topo_renderer_tpu_torch.ops.geometry import R0, degrees, f32
 from topo_renderer_tpu_torch.ops.mathx import norm
 from topo_renderer_tpu_torch.ops.postprocess import (
@@ -34,10 +39,19 @@ from topo_renderer_tpu_torch.ops.postprocess import (
     distance_fog_soa,
     postprocess_soa,
 )
-from topo_renderer_tpu_torch.ops.surface import INVALID_HEIGHT, raster_from_ecef, raster_from_geo
-from topo_renderer_tpu_torch.ops.window_slice import window_slice_multi
+from topo_renderer_tpu_torch.ops.surface import (
+    INVALID_HEIGHT,
+    raster_from_ecef,
+    raster_from_geo,
+    sample_attributes_nearest,
+    sample_attributes_soa,
+    sample_height_level,
+)
+from topo_renderer_tpu_torch.ops.window_slice import window_slice_multi, window_slice_multi_batched
 
-_DEFERRED = "ROADMAP.md slice 1, deferred parts"
+# Viewpoints per K3 launch in `render_batch_scan`: at config 5 (four
+# 2 x 272 x 512 windows per eye) 256 eyes hold 1.14 GB of windows.
+EYES_PER_LAUNCH = 256
 
 
 @dataclasses.dataclass(frozen=True)
@@ -105,6 +119,26 @@ def _eye_frame(eye):
     return a0, (ux, uy, uz), (ex, ey), (nx, ny, nz), (lon0, lat0)
 
 
+def _surface_elevation(mosaic, a0, up, h_col, sig, level: int = 0, nearest: bool = False):
+    """Elevation angle of the terrain surface along columns at angular
+    ground distance ``sig`` (broadcastable against the planes in ``h_col``).
+    Cancellation-free at ECEF scale:
+      y = h cos(sig) - a0 - 2 R0 sin^2(sig/2),   x = (R0 + h) sin(sig).
+    """
+    ux, uy, uz = up
+    hx, hy, hz = h_col
+    cs = torch.cos(sig)
+    sn = torch.sin(sig)
+    sdx = ux * cs + hx * sn
+    sdy = uy * cs + hy * sn
+    sdz = uz * cs + hz * sn
+    gx, gy = raster_from_ecef(mosaic, sdx, sdy, sdz, 1.0)
+    h = sample_height_level(mosaic, level, gx, gy, nearest=nearest)
+    y = h * cs - a0 - 2.0 * R0 * torch.sin(0.5 * sig) ** 2
+    x = (R0 + h) * sn
+    return torch.atan2(y, x)
+
+
 def _texel_m(spec: PanoramaSpec, mosaic) -> float:
     """Effective base texel size: the spec override, else the mosaic's hint."""
     if spec.lod_texel_m is not None:
@@ -170,7 +204,8 @@ def _bilinear_levels(spec: PanoramaSpec, n_levels: int, texel_m: float) -> set:
 def _window_origin(gx_e, gy_e, level: int, wsy: int, wsx: int, h_t: int, w_t: int):
     """Eye-centred window origin for one clipmap level, clipped into the
     table and aligned DOWN to (8, 128) exactly as the JAX package aligns it
-    (for its TPU tiling), so the windows hold the same texels."""
+    (for its TPU tiling), so the windows hold the same texels. Works
+    elementwise, so batched ``gx_e``/``gy_e`` give each eye's origin."""
     s = float(2**level)
     off = (s - 1.0) / 2.0
     sx = torch.clamp(torch.round((gx_e - off) / s).to(torch.int32) - wsx // 2, 0, w_t - wsx)
@@ -183,35 +218,71 @@ def _window_origin(gx_e, gy_e, level: int, wsy: int, wsx: int, h_t: int, w_t: in
 def _quad_rows(win):
     """Pack each texel's 2x2 bilinear neighbourhood into one gather row.
 
-    ``win f32[2, wsy, wsx]`` -> ``f32[wsy*wsx, 8]`` rows (h00, b00, h01, b01,
-    h10, b10, h11, b11), 01 = east, 10 = south, 11 = south-east
-    (edge-clamped). Moved as int32 words: plane 1 holds normal bits.
+    ``win f32[..., 2, wsy, wsx]`` -> ``f32[..., wsy*wsx, 8]`` rows (h00,
+    b00, h01, b01, h10, b10, h11, b11), 01 = east, 10 = south, 11 =
+    south-east (edge-clamped). Moved as int32 words: plane 1 holds normal
+    bits.
     """
     w = win.view(torch.int32)
-    e = torch.cat([w[:, :, 1:], w[:, :, -1:]], dim=2)
-    s_ = torch.cat([w[:, 1:, :], w[:, -1:, :]], dim=1)
-    se = torch.cat([s_[:, :, 1:], s_[:, :, -1:]], dim=2)
-    planes = [w[0], w[1], e[0], e[1], s_[0], s_[1], se[0], se[1]]
-    return torch.stack([p.reshape(-1) for p in planes], dim=-1).view(torch.float32)
+    e = torch.cat([w[..., 1:], w[..., -1:]], dim=-1)
+    s_ = torch.cat([w[..., 1:, :], w[..., -1:, :]], dim=-2)
+    se = torch.cat([s_[..., 1:], s_[..., -1:]], dim=-1)
+    planes = [x[..., c, :, :] for x in (w, e, s_, se) for c in (0, 1)]
+    return torch.stack([p.flatten(-2) for p in planes], dim=-1).view(torch.float32)
+
+
+def _slice_level_flat(mosaic, level, use_attr, quad_levels, sy, sx, wsy, wsx, h_t, w_t):
+    """One level's window cut from the flat gather tables, for a level
+    without a ``win_attr_2d`` table or a spec without profile attributes
+    (`panorama.py:285-322`'s slicing forms). Returns ``(tbl_h, tbl_a,
+    tbl_q)``: ``tbl_a f32[wsy*wsx, 2]`` (height, normal-bits) rows and
+    their quad rows with profile attributes, else ``tbl_h f32[wsy*wsx]``
+    heights. The origin stays on the device: the window is gathered by
+    index, clamped into the table as DynamicSlice clamps it.
+    """
+    dev = mosaic.device
+    sy = torch.clamp(sy, 0, h_t - wsy).long()
+    sx = torch.clamp(sx, 0, w_t - wsx).long()
+    rows = sy + torch.arange(wsy, device=dev)
+    cols = sx + torch.arange(wsx, device=dev)
+    idx = (rows[:, None] * w_t + cols[None, :]).reshape(-1)
+    if not use_attr:
+        hf = mosaic.heights_flat if level == 0 else mosaic.mip_heights_flat[level - 1]
+        return hf[idx], None, None
+    af = mosaic.attr_packed_flat if level == 0 else mosaic.mip_attr_flat[level - 1]
+    tbl_a = af.view(torch.int32)[idx].view(torch.float32)
+    tbl_q = _quad_rows(tbl_a.T.reshape(2, wsy, wsx)) if level in quad_levels else None
+    return None, tbl_a, tbl_q
+
+
+def _eye_raster(mosaic, eyes):
+    """Raster coordinates of the eyes' ground points, elementwise over any
+    leading axes of ``eyes f32[..., 3]``. `norm` sums the squares in index
+    order, so a batch gives each eye the bits of its single-eye call."""
+    e_norm = norm(eyes)
+    lon0 = degrees(torch.atan2(eyes[..., 1], eyes[..., 0]))
+    lat0 = degrees(torch.asin(torch.clamp(eyes[..., 2] / e_norm, -1.0, 1.0)))
+    return raster_from_geo(mosaic, lon0, lat0)
 
 
 def extract_clipmap_windows(mosaic, eye, spec: PanoramaSpec):
-    """Slice the eye-centred clipmap windows out of the mosaic's 2-D window
-    tables, all levels in one launch of kernel K2.
+    """Slice the eye-centred clipmap windows out of the mosaic's tables.
+
+    Levels with a 2-D window table go through one launch of kernel K2 when
+    the spec's profile carries attributes; other windowed levels are cut
+    from the flat tables (`_slice_level_flat`).
 
     Returns a tuple over levels of ``(tbl_h, tbl_a, tbl_q, ox, oy)``:
     ``tbl_a f32[wsy*wsx, 2]`` (height, normal-bits) rows, ``tbl_q
-    f32[wsy*wsx, 8]`` quad rows for levels with a bilinear segment, and the
+    f32[wsy*wsx, 8]`` quad rows for levels with a bilinear segment, ``tbl_h
+    f32[wsy*wsx]`` heights for specs without profile attributes, and the
     int32 origin. Entries are None where the level is gathered in full.
     """
     dev = mosaic.device
     eye = f32(eye).to(dev)
     n_levels = len(mosaic.mip_shapes)
     use_attr = bool(spec.attrs_from_profile and spec.lod and n_levels)
-    e_norm = norm(eye)
-    lon0 = degrees(torch.atan2(eye[1], eye[0]))
-    lat0 = degrees(torch.asin(torch.clamp(eye[2] / e_norm, -1.0, 1.0)))
-    gx_e, gy_e = raster_from_geo(mosaic, lon0, lat0)
+    gx_e, gy_e = _eye_raster(mosaic, eye)
 
     quad_levels = _bilinear_levels(spec, n_levels, _texel_m(spec, mosaic)) if use_attr else set()
     plan = _clipmap_window_plan(spec, mosaic)
@@ -221,17 +292,16 @@ def extract_clipmap_windows(mosaic, eye, spec: PanoramaSpec):
         if not use_window:
             out.append((None, None, None, None, None))
             continue
-        win2d = mosaic.win_attr_2d[level] if level < len(mosaic.win_attr_2d) else None
-        if not use_attr or win2d is None:
-            raise NotImplementedError(
-                "clipmap windows from the flat gather tables (no win_attr_2d "
-                f"table for level {level}, or a spec without profile attributes): {_DEFERRED}"
-            )
         sx, sy = _window_origin(gx_e, gy_e, level, wsy, wsx, h_t, w_t)
-        levels.append(level)
-        tables.append(win2d)
-        origins.append(torch.stack([sy, sx]))
-        out.append((None, None, None, sx, sy))
+        win2d = mosaic.win_attr_2d[level] if level < len(mosaic.win_attr_2d) else None
+        if use_attr and win2d is not None:
+            levels.append(level)
+            tables.append(win2d)
+            origins.append(torch.stack([sy, sx]))
+            out.append((None, None, None, sx, sy))
+        else:
+            tbls = _slice_level_flat(mosaic, level, use_attr, quad_levels, sy, sx, wsy, wsx, h_t, w_t)
+            out.append((*tbls, sx, sy))
 
     if tables:
         wsy, wsx = plan[0][2], plan[0][3]
@@ -243,14 +313,97 @@ def extract_clipmap_windows(mosaic, eye, spec: PanoramaSpec):
     return tuple(out)
 
 
+@dataclasses.dataclass
+class _WindowBatch:
+    """B eyes' windows from one K3 launch: per windowed level, ``wins
+    f32[B, 2, wsy, wsx]`` and the origins ``sx``, ``sy`` ``i32[B]``."""
+
+    n_levels: int
+    wins: dict
+    sx: dict
+    sy: dict
+    quad_levels: set
+
+    def windows(self, b=slice(None)):
+        """Eye b's windows in `extract_clipmap_windows`' form, or with the
+        default every eye's, with a leading B axis. Quad rows are built
+        here, for the eyes asked for."""
+        out = []
+        for level in range(self.n_levels + 1):
+            if level not in self.wins:
+                out.append((None, None, None, None, None))
+                continue
+            win = self.wins[level][b]
+            tbl_a = win.flatten(-2).transpose(-1, -2)  # [..., wsy*wsx, 2]
+            tbl_q = _quad_rows(win) if level in self.quad_levels else None
+            out.append((None, tbl_a, tbl_q, self.sx[level][b], self.sy[level][b]))
+        return tuple(out)
+
+
+def _window_batch(mosaic, eyes, spec: PanoramaSpec):
+    """One K3 launch for the windows of ``eyes f32[B, 3]``, or None where
+    the batched copy does not apply: a spec without profile attributes, no
+    windowed level, or a windowed level without its 2-D table
+    (`panorama.py:714-736`)."""
+    n_levels = len(mosaic.mip_shapes)
+    use_attr = bool(spec.attrs_from_profile and spec.lod and n_levels)
+    plan = _clipmap_window_plan(spec, mosaic)
+    windowed = [p for p in plan if p[1]]
+    have_2d = all(
+        lv < len(mosaic.win_attr_2d) and mosaic.win_attr_2d[lv] is not None for lv, *_ in windowed
+    )
+    if not (use_attr and windowed and have_2d):
+        return None
+    gx_e, gy_e = _eye_raster(mosaic, eyes)  # [B]
+    sxs, sys_, origins = {}, {}, []
+    for level, _, wsy, wsx, (h_t, w_t) in windowed:
+        sxs[level], sys_[level] = _window_origin(gx_e, gy_e, level, wsy, wsx, h_t, w_t)
+        origins.append(torch.stack([sys_[level], sxs[level]], dim=-1))  # [B, 2]
+    _, _, wsy, wsx, _ = windowed[0]
+    wins = window_slice_multi_batched(
+        [mosaic.win_attr_2d[lv] for lv, *_ in windowed],
+        torch.stack(origins, dim=1).contiguous(),  # [B, L, 2]
+        wsy=wsy, wsx=wsx,
+    )
+    return _WindowBatch(
+        n_levels=n_levels,
+        wins={lv: w for (lv, *_), w in zip(windowed, wins)},
+        sx=sxs,
+        sy=sys_,
+        quad_levels=_bilinear_levels(spec, n_levels, _texel_m(spec, mosaic)),
+    )
+
+
+def extract_clipmap_windows_batched(mosaic, eyes, spec: PanoramaSpec):
+    """B viewpoints' clipmap windows with one launch of kernel K3.
+
+    Returns `extract_clipmap_windows`' per-level tuple with a leading B
+    axis on every tensor: ``tbl_a f32[B, wsy*wsx, 2]``, ``tbl_q f32[B,
+    wsy*wsx, 8]`` for the quad levels, origins ``i32[B]``. Where the batched
+    copy does not apply (see `_window_batch`) the eyes are extracted one by
+    one and stacked, as the JAX package vmaps its single-eye extraction.
+    """
+    eyes = f32(eyes).to(mosaic.device)
+    batch = _window_batch(mosaic, eyes, spec)
+    if batch is None:
+        per_eye = [extract_clipmap_windows(mosaic, e, spec) for e in eyes]
+        return tuple(
+            tuple(None if parts[0] is None else torch.stack(parts) for parts in zip(*level))
+            for level in zip(*per_eye)
+        )
+    return batch.windows()
+
+
 def _build_lod_profile(mosaic, spec: PanoramaSpec, windows, a0, up, h_prof_b, sigma):
     """LOD visibility profile ``e_prof f32[N, ws]`` (tan-elevation ratios,
-    -1e30 outside the mosaic) and the three normal-code planes carried by
-    each sample. Each log-schedule segment samples the mip level matching
-    its step length, through the clipmap windows where the level is large.
+    -1e30 outside the mosaic) and, for specs with profile attributes, the
+    three normal-code planes carried by each sample (else None). Each
+    log-schedule segment samples the mip level matching its step length,
+    through the clipmap windows where the level is large.
     """
     N = spec.n_steps
     n_levels = len(mosaic.mip_shapes)
+    use_attr_prof = bool(spec.attrs_from_profile and spec.lod and n_levels)
     plan = _clipmap_window_plan(spec, mosaic)
     parts_e, parts_attr = [], []
     segments = _lod_segments(spec, n_levels, _texel_m(spec, mosaic))
@@ -272,7 +425,9 @@ def _build_lod_profile(mosaic, spec: PanoramaSpec, windows, a0, up, h_prof_b, si
         segments = split
     ws_cols = h_prof_b[0].shape[1]
     for level, k0, k1 in segments:
-        seg_bilinear = spec.near_bilinear_m > 0.0 and s_np[k1 - 1] <= spec.near_bilinear_m
+        seg_bilinear = (
+            spec.near_bilinear_m > 0.0 and use_attr_prof and s_np[k1 - 1] <= spec.near_bilinear_m
+        )
         far4 = (
             spec.profile_far_stride4_m > 0.0
             and not seg_bilinear
@@ -292,9 +447,10 @@ def _build_lod_profile(mosaic, spec: PanoramaSpec, windows, a0, up, h_prof_b, si
         s = float(2**level)
         off = (s - 1.0) / 2.0
         if use_window:
-            _, tbl_a, tbl_q, ox, oy = windows[level]
+            tbl_h, tbl_a, tbl_q, ox, oy = windows[level]
             tw, th_ = wsx, wsy
         else:
+            tbl_h = mosaic.heights_flat if level == 0 else mosaic.mip_heights_flat[level - 1]
             tbl_a = mosaic.attr_packed_flat if level == 0 else mosaic.mip_attr_flat[level - 1]
             tbl_q = None
             tw, th_, ox, oy = w_t, h_t, 0, 0
@@ -339,17 +495,20 @@ def _build_lod_profile(mosaic, spec: PanoramaSpec, windows, a0, up, h_prof_b, si
             iy = torch.round(ly).to(torch.int32)
             ok = (ix >= 0) & (ix <= tw - 1) & (iy >= 0) & (iy <= th_ - 1)
             idx = (torch.clamp(iy, 0, th_ - 1) * tw + torch.clamp(ix, 0, tw - 1)).long()
-            # One row gather serves the height and the packed normal.
-            rows = tbl_a[idx]
-            h = rows[..., 0]
-            bits = rows[..., 1].view(torch.int32)
-            comps_part = tuple(
-                torch.where(ok, ((bits >> sh) & 0x3FF).to(torch.float32), 0.0)
-                for sh in (0, 10, 20)
-            )
-            if stride > 1:
-                comps_part = tuple(torch.repeat_interleave(c, stride, dim=1) for c in comps_part)
-            parts_attr.append(comps_part)
+            if use_attr_prof:
+                # One row gather serves the height and the packed normal.
+                rows = tbl_a[idx]
+                h = rows[..., 0]
+                bits = rows[..., 1].view(torch.int32)
+                comps_part = tuple(
+                    torch.where(ok, ((bits >> sh) & 0x3FF).to(torch.float32), 0.0)
+                    for sh in (0, 10, 20)
+                )
+                if stride > 1:
+                    comps_part = tuple(torch.repeat_interleave(c, stride, dim=1) for c in comps_part)
+                parts_attr.append(comps_part)
+            else:
+                h = tbl_h[idx]
         ok = ok & (h > 0.5 * INVALID_HEIGHT)
         y = h * cs - a0 - 2.0 * R0 * sh2
         x = (R0 + h) * sn
@@ -359,7 +518,9 @@ def _build_lod_profile(mosaic, spec: PanoramaSpec, windows, a0, up, h_prof_b, si
             e_part = torch.repeat_interleave(e_part, stride, dim=1)
         parts_e.append(e_part)
     e_prof = torch.cat(parts_e, dim=0)
-    attr_prof = tuple(torch.cat([p[c] for p in parts_attr], dim=0) for c in range(3))
+    attr_prof = None
+    if use_attr_prof:
+        attr_prof = tuple(torch.cat([p[c] for p in parts_attr], dim=0) for c in range(3))
     return e_prof, attr_prof
 
 
@@ -387,19 +548,12 @@ def render_panorama(
     "distance" | "atmosphere". ``windows``: pre-extracted clipmap windows
     (`extract_clipmap_windows`), extracted here when None.
     """
-    n_levels = len(mosaic.mip_shapes)
-    if not (spec.lod and n_levels):
-        raise NotImplementedError(f"non-LOD panorama (_surface_elevation branch): {_DEFERRED}")
-    if not spec.attrs_from_profile:
-        raise NotImplementedError(f"LOD panorama without profile attributes: {_DEFERRED}")
-    if spec.n_refine > 0:
-        raise NotImplementedError(f"per-pixel refinement (n_refine > 0): {_DEFERRED}")
-    if not spec.use_pallas:
-        raise NotImplementedError(f"reduction-based crossing (use_pallas=False): {_DEFERRED}")
-
     dev = mosaic.device
     eye = f32(eye).to(dev)
     W, H, N = spec.width, spec.height, spec.n_steps
+    n_levels = len(mosaic.mip_shapes)
+    lod = bool(spec.lod and n_levels)
+    use_attr_prof = bool(spec.attrs_from_profile and lod)
 
     a0, up, (ex, ey), (nx0, ny0, nz0), _ = _eye_frame(eye)
 
@@ -413,6 +567,7 @@ def render_panorama(
     cphi, sphi = torch.cos(phi), torch.sin(phi)
     hx = (nx0 * cphi + ex * sphi)[None, :]  # per-pixel-column ground direction
     hy = (ny0 * cphi + ey * sphi)[None, :]
+    hz = (nz0 * cphi)[None, :]
 
     # Scalar-precision trap: the schedule constants are float32 logs
     # (`panorama.py:472-476`), not Python (float64) ones.
@@ -433,27 +588,39 @@ def render_panorama(
         cps, sps = torch.cos(phi_sub), torch.sin(phi_sub)
         h_prof = (nx0 * cps + ex * sps, ny0 * cps + ey * sps, nz0 * cps)
     else:
-        h_prof = (hx[0], hy[0], nz0 * cphi)
+        h_prof = (hx[0], hy[0], hz[0])
     h_prof_b = tuple(c[None, :] for c in h_prof)
 
-    if windows is None:
-        windows = extract_clipmap_windows(mosaic, eye, spec)
-    e_prof, attr_prof = _build_lod_profile(mosaic, spec, windows, a0, up, h_prof_b, sigma)
+    if lod:
+        if windows is None:
+            windows = extract_clipmap_windows(mosaic, eye, spec)
+        e_prof, attr_prof = _build_lod_profile(mosaic, spec, windows, a0, up, h_prof_b, sigma)
+    else:
+        e_prof = _surface_elevation(mosaic, a0, up, h_prof_b, sigma, nearest=spec.profile_nearest)
+        attr_prof = None
 
-    # Pixel elevation thresholds, row 0 at the top, in the profile's tan
-    # space.
+    # Pixel elevations, row 0 at the top. The LOD profile holds tan(e)
+    # ratios, so its row thresholds are tan(e_pix); the exact profile holds
+    # angles.
     e_lo, e_hi = spec.elevation_range()
     rows = (torch.arange(H, dtype=torch.float32, device=dev) + 0.5) / H
     e_pix = (f32(elev_offset, dev) + f32(e_hi, dev) - rows * f32(e_hi - e_lo, dev))[:, None]
     t_pix = torch.tan(e_pix)  # [H, 1]
+    thresh = t_pix if lod else e_pix
 
-    kstar, theta_hi, m_lo, p0, p1, p2 = crossing_search(
-        e_prof, attr_prof[0], attr_prof[1], attr_prof[2], t_pix.reshape(H)
-    )
-    n_payload = (p0, p1, p2)
+    n_payload = None
+    if use_attr_prof and spec.use_pallas:
+        kstar, theta_hi, m_lo, p0, p1, p2 = crossing_search(
+            e_prof, attr_prof[0], attr_prof[1], attr_prof[2], thresh.reshape(H)
+        )
+        n_payload = (p0, p1, p2)
+    else:
+        m_prof = torch.cummax(e_prof, dim=0).values
+        kstar, theta_hi, m_lo, n_payload = crossing_reductions(m_prof, thresh.reshape(H), attr_prof)
     if st > 1:
         kstar, theta_hi, m_lo = (torch.repeat_interleave(x, st, dim=1) for x in (kstar, theta_hi, m_lo))
-        n_payload = tuple(torch.repeat_interleave(p, st, dim=1) for p in n_payload)
+        if n_payload is not None:
+            n_payload = tuple(torch.repeat_interleave(p, st, dim=1) for p in n_payload)
 
     hit = kstar < N
     kstar = torch.clamp(kstar, 0.0, float(N - 1))
@@ -462,22 +629,37 @@ def render_panorama(
     sig_lo = torch.where(kstar > 0, sigma_of(torch.clamp(kstar - 1.0, min=0.0)), sigma_of(0.0))
     denom = theta_hi - m_lo
     tfrac = torch.clamp(
-        (t_pix - m_lo) / torch.where(torch.abs(denom) < 1e-12, 1.0, denom), 0.0, 1.0
+        (thresh - m_lo) / torch.where(torch.abs(denom) < 1e-12, 1.0, denom), 0.0, 1.0
     )
     tfrac = torch.where(kstar > 0, tfrac, 0.0)
     sig_star = sig_lo + tfrac * (sig_hi - sig_lo)
 
+    if spec.n_refine > 0:
+        # Bisection against the true surface between the bracketing samples.
+        slo, shi = sig_lo, sig_hi
+        for _ in range(spec.n_refine):
+            mid = 0.5 * (slo + shi)
+            below = _surface_elevation(mosaic, a0, up, (hx, hy, hz), mid) < e_pix
+            slo, shi = torch.where(below, mid, slo), torch.where(below, shi, mid)
+        sig_star = torch.where(kstar > 0, shi, sig_star)
+
     cs = torch.cos(sig_star)
     sn = torch.sin(sig_star)
-    ux, uy, _ = up
+    ux, uy, uz = up
     sdx = ux * cs + hx * sn
     sdy = uy * cs + hy * sn
-    # Analytic hit height: the crossing lies on the pixel ray at ground angle
-    # sig*, so h cos - a0 - 2 R0 sin^2(s/2) = tan(e) x.
-    tanp = t_pix
-    sh2s = torch.sin(0.5 * sig_star) ** 2
-    h_star = (a0 + 2.0 * R0 * sh2s + tanp * R0 * sn) / (cs - tanp * sn)
-    n_x, n_y, n_z = (2.0 * (p / 1023.0) - 1.0 for p in n_payload)
+    if use_attr_prof:
+        # Analytic hit height: the crossing lies on the pixel ray at ground
+        # angle sig*, so h cos - a0 - 2 R0 sin^2(s/2) = tan(e) x.
+        tanp = t_pix
+        sh2s = torch.sin(0.5 * sig_star) ** 2
+        h_star = (a0 + 2.0 * R0 * sh2s + tanp * R0 * sn) / (cs - tanp * sn)
+        n_x, n_y, n_z = (2.0 * (p / 1023.0) - 1.0 for p in n_payload)
+    else:
+        sdz = uz * cs + hz * sn
+        gx, gy = raster_from_ecef(mosaic, sdx, sdy, sdz, 1.0)
+        sample = sample_attributes_nearest if spec.attrs_nearest else sample_attributes_soa
+        h_star, n_x, n_y, n_z, _ = sample(mosaic, gx, gy)
     h_star = torch.clamp(h_star, min=-1e4)  # keep sky distances sane
 
     y_ip = h_star * cs - a0 - 2.0 * R0 * torch.sin(0.5 * sig_star) ** 2
@@ -515,3 +697,33 @@ def render_panorama(
     else:
         out["color"] = torch.stack(channels, dim=-1)
     return out
+
+
+def render_batch_scan(mosaic, eyes, suns, spec: PanoramaSpec, view_mode=0, fog: str | None = None):
+    """Panoramas of B viewpoints: ``eyes``, ``suns`` ``f32[B, 3]`` ->
+    colours ``f32[B, H, W, 3]`` on the mosaic's device.
+
+    The JAX package runs this as one `lax.scan` program over per-eye
+    extraction and render. Here one launch of kernel K3 extracts the
+    clipmap windows of up to ``EYES_PER_LAUNCH`` (256) eyes (one launch per
+    such chunk), and each eye then renders from its own windows, keeping
+    per-eye gather locality. Quad rows are built per eye. Where the batched
+    copy does not apply (`_window_batch`), each eye extracts its own.
+    """
+    dev = mosaic.device
+    eyes = f32(eyes).to(dev)
+    suns = f32(suns).to(dev)
+    clip = bool(spec.lod and spec.clipmap and mosaic.mip_shapes)
+    colors = torch.empty((eyes.shape[0], spec.height, spec.width, 3), dtype=torch.float32, device=dev)
+    for b0 in range(0, eyes.shape[0], EYES_PER_LAUNCH):
+        chunk = eyes[b0 : b0 + EYES_PER_LAUNCH]
+        batch = _window_batch(mosaic, chunk, spec) if clip else None
+        for i, eye in enumerate(chunk):
+            if batch is not None:
+                windows = batch.windows(i)
+            else:
+                windows = extract_clipmap_windows(mosaic, eye, spec) if clip else None
+            colors[b0 + i] = render_panorama(
+                mosaic, eye, spec, suns[b0 + i], view_mode=view_mode, fog=fog, windows=windows
+            )["color"]
+    return colors

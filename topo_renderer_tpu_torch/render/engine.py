@@ -1,11 +1,12 @@
-"""RenderEngine: the top-level rendering API (panorama slice).
+"""RenderEngine: the top-level rendering API (panorama paths).
 
-Port of the parts of `topo_renderer_tpu/render/engine.py` the LOD panorama
-uses: the loaded tile set and per-tile peak lists (`render_engine.rs:34-44`),
-a mosaic rebuilt on the engine's device when tiles change, and
-``render_panorama`` with its peak-label pass. The JAX package fuses render
-and label visibility into one jitted program; here they are two plain
-calls on the device, and only the packed visibility crosses to the host.
+Port of the parts of `topo_renderer_tpu/render/engine.py` the panoramas
+use: the loaded tile set and per-tile peak lists (`render_engine.rs:34-44`),
+a mosaic rebuilt on the engine's device when tiles change,
+``render_panorama`` with its peak-label pass, and ``render_batch`` for many
+viewpoints without labels. The JAX package fuses render and label
+visibility into one jitted program; here they are two plain calls on the
+device, and only the packed visibility crosses to the host.
 
 Peak arrays are padded to power-of-two capacities, as in the JAX package.
 """
@@ -32,6 +33,7 @@ from topo_renderer_tpu_torch.ops.labels import peak_visibility_panorama
 from topo_renderer_tpu_torch.ops.panorama import (
     PanoramaSpec,
     extract_clipmap_windows,
+    render_batch_scan,
     render_panorama,
 )
 from topo_renderer_tpu_torch.render import text as text_mod
@@ -226,3 +228,24 @@ class RenderEngine:
             visible_labels=visible_labels,
             layouts=layouts,
         )
+
+    def render_batch(self, eyes, spec: PanoramaSpec, sun_directions, view_mode=0, fog=None):
+        """Panoramas of many viewpoints without labels: ``eyes f32[B, 3]``,
+        ``sun_directions f32[B, 3]`` -> colour ``f32[B, H, W, 3]``, a tensor
+        on the engine's device.
+
+        Clipmap (LOD) specs go through `render_batch_scan`: one launch of
+        kernel K3 extracts every eye's windows, then each eye renders from
+        its own. Other specs render eye by eye with the reduction crossing
+        (``use_pallas=False``), as the JAX package's vmapped fallback forces
+        it (`engine.py:1173-1182`).
+        """
+        eyes = f32(eyes).to(self.device)
+        suns = f32(sun_directions).to(self.device)
+        if spec.lod and spec.clipmap:
+            return render_batch_scan(self.mosaic, eyes, suns, spec, view_mode=view_mode, fog=fog)
+        vspec = dataclasses.replace(spec, use_pallas=False)
+        return torch.stack([
+            render_panorama(self.mosaic, e, vspec, s, view_mode=view_mode, fog=fog)["color"]
+            for e, s in zip(eyes, suns)
+        ])
