@@ -1,7 +1,8 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch/CUDA port on one GPU.
 
-    python3 chip_smoke.py
+    python3 chip_smoke.py                 # every phase
+    python3 chip_smoke.py --kernels-only  # phases 1, 2, 3 and 5's kernel times
 
 Phases (any failure exits non-zero):
   1. the card's name and power limit (nvidia-smi), torch and CUDA versions;
@@ -10,7 +11,9 @@ Phases (any failure exits non-zero):
   3. hold each kernel against its plain PyTorch version on the card at the
      shapes the panoramas give it: K1 (crossing search), K2/K4 (window
      copies) and K3 (the batched window copy, 256 viewpoints) must agree
-     exactly, bit for bit;
+     exactly, bit for bit. K1 also on ties, N = 509 (not a multiple of its
+     chunk), crossings and NaNs at chunk edges, shuffled rows at the batch
+     shape and an unaligned profile; K2 also on two table sets in turn;
   4. drive the engine on 100 COP-90-shaped tiles (10 x 10 tiles of 1201^2
      texels at 3", a 12001^2 mosaic) and ~256 peaks:
      a. three 4096 x 1024 atmospheric LOD panoramas of 512 steps with
@@ -25,8 +28,14 @@ Phases (any failure exits non-zero):
         launches and each eye equals its single-eye render.
      Small scenes rendered on the card and on the CPU (plain versions) must
      agree, for the fast preset and for the fallback's spec;
-  5. time each kernel, its plain version and the paths with CUDA events and
-     print the ``kernels`` JSON line.
+  5. each kernel's own device time with torch.profiler, after the paths'
+     timings so that no profiler has run before them, and the ``kernels``
+     JSON line. Per-call times (CUDA events) come from phases 3 and 4.
+
+``--kernels-only`` runs phases 1 to 3 and the device times, and prints the
+kernels line without launch counts and without the final result line; run
+from a copy of this script placed beside another checkout's package, it
+times that checkout's kernels the same way.
 
 The last line is ``{"ok": true, "device": {...}}``. Without CUDA, or without
 the package beside it, the script exits non-zero and prints no result.
@@ -71,6 +80,38 @@ def cuda_ms(fn, iters: int, warmup: int = 1) -> float:
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / iters
+
+
+def device_ms(fn, iters: int) -> float:
+    """Device time per call of ``fn``: the self device time torch.profiler
+    records over ``iters`` calls, over ``iters``. Host time between launches
+    does not count, so this is the kernels' own time."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(iters):
+            fn()
+        torch.cuda.synchronize()
+    events = [e for e in prof.key_averages() if e.device_type == torch.autograd.DeviceType.CUDA]
+    us = sum(e.self_device_time_total for e in events)
+    if us <= 0:
+        raise AssertionError("the profiler saw no device time")
+    return us / 1e3 / iters
+
+
+def device_times(kernels) -> None:
+    """Phase 5: each kernel's own device time on its phase-3 inputs, into
+    ``device_ms`` (``batch_shape.device_ms`` for K1 at the batch shape).
+    It runs after the paths' timings: the profiler is not started before
+    them."""
+    for k in kernels:
+        for where, fn, iters in k.pop("device_fns"):
+            (k[where] if where else k)["device_ms"] = device_ms(fn, iters)
+        extra = f", batch shape {k['batch_shape']['device_ms']:.4f} ms" if "batch_shape" in k else ""
+        log(f"{k['name']}: {k['device_ms']:.4f} ms on the device per launch{extra}")
 
 
 # ---- synthetic scene ------------------------------------------------------
@@ -215,7 +256,8 @@ def check_crossing():
     plain_ms = cuda_ms(lambda: K.crossing_search_plain(e, a0, a1, a2, t), iters=3)
     nbytes = crossing_bytes(e, want[0])
     log(f"K1 crossing_search: exact on N={e.shape[0]} W={e.shape[1]} H={t.shape[0]}; "
-        f"{ms:.4f} ms (plain {plain_ms:.3f} ms), {nbytes / 1e6:.2f} MB needed")
+        f"{ms:.4f} ms per call (plain {plain_ms:.3f} ms), "
+        f"{nbytes / 1e6:.2f} MB needed")
     # The batch path's shape: 1024x256 panoramas with profile stride 2.
     eb, b0, b1, b2, tb = crossing_inputs(n=512, ws=512, h=256)
     want_b = K.crossing_search_plain(eb, b0, b1, b2, tb)
@@ -228,22 +270,75 @@ def check_crossing():
         bound_ms=1e3 * crossing_bytes(eb, want_b[0]) / HBM_BYTES_PER_S,
     )
     log(f"K1 crossing_search: exact on N=512 W=512 H=256 (the batch path's shape); "
-        f"{batch_shape['ms']:.4f} ms (plain {batch_shape['plain_ms']:.3f} ms, bound "
+        f"{batch_shape['ms']:.4f} ms per call (plain {batch_shape['plain_ms']:.3f} ms, bound "
         f"{batch_shape['bound_ms']:.5f} ms)")
     return dict(
         name="crossing_search", route="cuda", source="topo_renderer_tpu_torch/csrc/crossing.cu",
         replaces="topo_renderer_tpu/ops/pallas_crossing.py:124", max_abs_err=err, ms=ms,
         plain_ms=plain_ms, bound_ms=1e3 * nbytes / HBM_BYTES_PER_S, bound_by="bytes", library_ms=None,
         batch_shape=batch_shape,
+        device_fns=[(None, lambda: K.crossing_search(e, a0, a1, a2, t), 50),
+                    ("batch_shape", lambda: K.crossing_search(eb, b0, b1, b2, tb), 200)],
     )
 
 
-def window_tables():
+def check_crossing_edges():
+    """K1 against its plain version where the kernel's chunks show: ties,
+    N not a multiple of the chunk, crossings on a chunk's first step, NaNs
+    on either side of a chunk edge, shuffled rows at the batch shape, a
+    width that is not a multiple of 4 and a profile that is not 16-byte
+    aligned (both take the 4-byte loads; phase 3's 50 x 200 case takes the
+    16-byte loads on a ragged column tile)."""
+    import torch
+
+    from topo_renderer_tpu_torch.ops import crossing as K
+
+    def same(name, e, a0, a1, a2, t):
+        got = K.crossing_search(e, a0, a1, a2, t)
+        torch.cuda.synchronize()
+        for g, w, field in zip(got, K.crossing_search_plain(e, a0, a1, a2, t), ("kstar", "theta", "m_lo", "n0",
+                                                                                "n1", "n2")):
+            if not torch.equal(g, w):
+                raise AssertionError(f"K1 {name} {field}: {(g != w).sum().item()} elements differ "
+                                     "from the plain version")
+
+    chunk = K.CHUNK
+    gen = torch.Generator().manual_seed(SEED + 6)
+    e, a0, a1, a2, t = crossing_inputs(n=509, ws=301, h=77)
+    same("N=509 W=301", e, a0, a1, a2, t)
+    m = torch.cummax(e, dim=0).values.flatten()
+    pick = torch.randint(0, m.numel(), (77,), generator=gen).to(e.device)
+    ties = torch.cat([m[pick[:50]], e.flatten()[pick[50:]]]).contiguous()
+    same("ties", e, a0, a1, a2, ties)
+    edges = e.clone()
+    top = float(e.max())
+    steps = [k for k in (chunk, 2 * chunk, 4 * chunk) if k < e.shape[0]]
+    for j, k in enumerate(steps):
+        edges[k, 40 * j : 40 * j + 60] = top + 1.0 + j
+    t_edge = t.clone()
+    t_edge[: 3 * len(steps)] = torch.tensor([top + 0.5 + j + d for j in range(len(steps)) for d in (0.0, 0.25, 0.4)],
+                                            device=t.device)
+    same("crossings on a chunk's first step", edges, a0, a1, a2, t_edge)
+    nans = edges.clone()
+    nans[chunk - 1, 0:30] = float("nan")
+    nans[chunk, 100:130] = float("nan")
+    nans[2 * chunk - 1, 200:230] = float("nan")
+    same("NaN at chunk edges", nans, a0, a1, a2, t_edge)
+    eb, b0, b1, b2, tb = crossing_inputs(n=512, ws=512, h=256)
+    same("W=512 H=256 shuffled rows", eb, b0, b1, b2, tb[torch.randperm(256, generator=gen).to(tb.device)])
+    flat = torch.empty(eb.numel() + 1, device=eb.device)
+    flat[1:] = eb.flatten()
+    same("unaligned profile at W=512", flat[1:].view(eb.shape), b0, b1, b2, tb)
+    log(f"K1 crossing_search: exact on ties, N=509 W=301, crossings on chunk-first steps {steps}, NaN at "
+        f"chunk edges, an unaligned profile and shuffled rows at W=512 H=256 (chunk {chunk})")
+
+
+def window_tables(seed=SEED):
     """The four windowed levels of the 12001^2 mosaic, with random heights
     and packed-normal words, a fifth of them denormal patterns."""
     import torch
 
-    g = torch.Generator(device="cuda").manual_seed(SEED)
+    g = torch.Generator(device="cuda").manual_seed(seed)
     tables = []
     for h in (12001, 6000, 3000, 1500):
         words = torch.randint(0, 1 << 30, (2, h, h), generator=g, device="cuda", dtype=torch.int32)
@@ -276,20 +371,39 @@ def check_window_slice():
     one = K.window_slice(tables[0], org[0], wsy=wsy, wsx=wsx)
     if not torch.equal(one.view(torch.int32), want[0].view(torch.int32)):
         raise AssertionError("K4: window bits differ from the plain version")
+    # Two table sets of the same shapes in turn: each call must copy its own.
+    others = window_tables(SEED + 7)
+    for round_ in range(2):
+        for tabs in (others, tables):
+            got = K.window_slice_multi(tabs, org, wsy=wsy, wsx=wsx)
+            for level, (g, w) in enumerate(zip(got, K.window_slice_multi_plain(tabs, org, wsy=wsy, wsx=wsx))):
+                if not torch.equal(g.view(torch.int32), w.view(torch.int32)):
+                    raise AssertionError(f"K2 level {level}, table sets in turn (round {round_}): window bits "
+                                         "differ from the plain version")
+    del others
+    # A set whose windows differ in shape (a 2-D table among 3-D ones).
+    mixed = [tables[0], tables[2][1], tables[3]]
+    got = K.window_slice_multi(mixed, org[[0, 2, 3]], wsy=wsy, wsx=wsx)
+    for level, (g, w) in enumerate(zip(got, K.window_slice_multi_plain(mixed, org[[0, 2, 3]], wsy=wsy, wsx=wsx))):
+        if g.shape != w.shape or not torch.equal(g.view(torch.int32), w.view(torch.int32)):
+            raise AssertionError(f"K2 level {level} of a mixed 2-D/3-D table set: window bits differ")
     ms2 = cuda_ms(lambda: K.window_slice_multi(tables, org, wsy=wsy, wsx=wsx), iters=200, warmup=5)
     plain2 = cuda_ms(lambda: K.window_slice_multi_plain(tables, org, wsy=wsy, wsx=wsx), iters=20)
     ms4 = cuda_ms(lambda: K.window_slice(tables[0], org[0], wsy=wsy, wsx=wsx), iters=200, warmup=5)
     plain4 = cuda_ms(lambda: K.window_slice_multi_plain(tables[:1], org[:1], wsy=wsy, wsx=wsx), iters=20)
     win_bytes = 2 * wsy * wsx * 4
-    log(f"K2 window_slice_multi: bit-exact on 4 levels; {ms2:.4f} ms (plain {plain2:.3f} ms); "
-        f"K4 window_slice: bit-exact; {ms4:.4f} ms (plain {plain4:.3f} ms)")
+    log(f"K2 window_slice_multi: bit-exact on 4 levels, on two table sets in turn and on a mixed 2-D/3-D set; "
+        f"{ms2:.4f} ms per call (plain {plain2:.3f} ms); K4 window_slice: bit-exact; {ms4:.4f} ms per call "
+        f"(plain {plain4:.3f} ms)")
     common = dict(route="cuda", source="topo_renderer_tpu_torch/csrc/window_slice.cu",
                   max_abs_err=0.0, bound_by="bytes", library_ms=None)
     return [
         dict(name="window_slice_multi", replaces="topo_renderer_tpu/ops/pallas_dma.py:68", ms=ms2,
-             plain_ms=plain2, bound_ms=1e3 * 2 * len(tables) * win_bytes / HBM_BYTES_PER_S, **common),
+             plain_ms=plain2, bound_ms=1e3 * 2 * len(tables) * win_bytes / HBM_BYTES_PER_S,
+             device_fns=[(None, lambda: K.window_slice_multi(tables, org, wsy=wsy, wsx=wsx), 200)], **common),
         dict(name="window_slice", replaces="topo_renderer_tpu/ops/pallas_dma.py:30", ms=ms4,
-             plain_ms=plain4, bound_ms=1e3 * 2 * win_bytes / HBM_BYTES_PER_S, **common),
+             plain_ms=plain4, bound_ms=1e3 * 2 * win_bytes / HBM_BYTES_PER_S,
+             device_fns=[(None, lambda: K.window_slice(tables[0], org[0], wsy=wsy, wsx=wsx), 200)], **common),
     ]
 
 
@@ -333,12 +447,13 @@ def check_window_slice_batched(batch=256):
                       iters=3)
     nbytes = 2 * len(tables) * batch * 2 * wsy * wsx * 4  # read once, written once
     log(f"K3 window_slice_multi_batched: bit-exact on B={batch} x {len(tables)} levels; {ms3:.4f} ms "
-        f"(plain {plain3:.3f} ms, {batch} x K2 {k2_loop:.3f} ms), {nbytes / 1e9:.3f} GB moved, "
+        f"per call (plain {plain3:.3f} ms, {batch} x K2 {k2_loop:.3f} ms), {nbytes / 1e9:.3f} GB moved, "
         f"{nbytes / (ms3 * 1e-3) / 1e12:.2f} TB/s")
     return dict(
         name="window_slice_multi_batched", route="cuda", source="topo_renderer_tpu_torch/csrc/window_slice.cu",
         replaces="topo_renderer_tpu/ops/pallas_dma.py:113", max_abs_err=0.0, ms=ms3, plain_ms=plain3,
         bound_ms=1e3 * nbytes / HBM_BYTES_PER_S, bound_by="bytes", library_ms=None, k2_loop_ms=k2_loop,
+        device_fns=[(None, lambda: K.window_slice_multi_batched(tables, org, wsy=wsy, wsx=wsx), 20)],
     )
 
 
@@ -575,7 +690,8 @@ def small_scene_agreement():
     torch.cuda.empty_cache()
 
 
-def main() -> int:
+def main(argv) -> int:
+    kernels_only = "--kernels-only" in argv
     try:
         import torch
     except ImportError:
@@ -599,14 +715,24 @@ def main() -> int:
     log(f"kernels built in {time.perf_counter() - t0:.1f} s")
     for name, text in cuda_build.build_log.items():
         for line in text.splitlines():
-            if "registers" in line or "spill" in line:
+            if "Function properties" in line or "registers" in line or "spill" in line:
                 log(f"  {name}: {line.strip()}")
 
     k1 = check_crossing()
+    if not kernels_only:
+        check_crossing_edges()
     k2, k4 = check_window_slice()
     torch.cuda.empty_cache()
     k3 = check_window_slice_batched()
     torch.cuda.empty_cache()
+    order = ("name", "route", "source", "replaces", "launches", "max_abs_err", "ms", "device_ms", "plain_ms",
+             "bound_ms", "bound_by", "library_ms", "launches_per_call", "batch_shape")
+    kernels = [k1, k2, k3, k4]
+    if kernels_only:
+        device_times(kernels)
+        print(json.dumps({"kernels": [{key: k[key] for key in order if key in k} for k in kernels]}), flush=True)
+        print(card, flush=True)
+        return 0
     small_scene_agreement()
     engine, centre = build_scene()
     per_call = {}
@@ -615,18 +741,16 @@ def main() -> int:
     per_call["fallback"] = fallback_path(engine, centre)
     del engine
     torch.cuda.empty_cache()
+    device_times(kernels)
     # ``launches``: one call of the path each kernel serves (K3 and K1: the
     # batch; K2: the single panorama); every path's count is in
     # ``launches_per_call``. ``ms``/``bound_ms`` of K1 are at config 4's
     # shape, ``batch_shape`` holds them at the batch path's.
     path_of = {"crossing_search": "batch", "window_slice_multi": "panorama",
                "window_slice_multi_batched": "batch", "window_slice": "panorama"}
-    kernels = [k1, k2, k3, k4]
     for k in kernels:
         k["launches"] = per_call[path_of[k["name"]]][k["name"]]
         k["launches_per_call"] = {path: c[k["name"]] for path, c in per_call.items()}
-    order = ("name", "route", "source", "replaces", "launches", "max_abs_err", "ms", "plain_ms",
-             "bound_ms", "bound_by", "library_ms", "launches_per_call", "batch_shape")
     log(f"frame: {frame_ms:.2f} ms (CUDA events); config 5: {panos_per_s:.1f} panoramas/s "
         f"({batch_ms:.1f} ms per call of 256 viewpoints); "
         f"K3 {k3['ms']:.4f} ms vs 256 x K2 {k3['k2_loop_ms']:.3f} ms")
@@ -639,4 +763,4 @@ def main() -> int:
 
 
 if __name__ == "__main__":
-    sys.exit(main())
+    sys.exit(main(sys.argv[1:]))

@@ -22,6 +22,7 @@ from topo_renderer_tpu.ops.panorama import (
 )
 from topo_renderer_tpu_torch.models.scene import ARRAY_FIELDS, mosaic_from_arrays
 from topo_renderer_tpu_torch.ops.panorama import PanoramaSpec, extract_clipmap_windows
+from topo_renderer_tpu_torch.ops import window_slice as ws_module
 from topo_renderer_tpu_torch.ops.window_slice import window_slice, window_slice_multi
 
 
@@ -63,6 +64,27 @@ def test_window_slice_rejects_bad_inputs():
         window_slice_multi([t], torch.zeros((1, 2), dtype=torch.int32), wsy=32, wsx=8)
     with pytest.raises(ValueError, match="int32"):
         window_slice_multi([t], torch.zeros((1, 2), dtype=torch.int64), wsy=8, wsx=8)
+
+
+def test_launch_args_cached_per_table_set():
+    """The CUDA path validates a table set once and caches its launch
+    arguments under every table's pointer, shape, strides, dtype and
+    device: another set of the same shapes gets its own pointers."""
+    rng = np.random.default_rng(1)
+    first = [torch.from_numpy(_table(rng, h, w)) for h, w in [(64, 96), (40, 130)]]
+    second = [t.clone() for t in first]
+    origins = torch.zeros((2, 2), dtype=torch.int32)
+    args = ws_module._launch_args(first, origins, 16, 32, False)
+    assert ws_module._launch_args(first, origins, 16, 32, False) is args
+    other = ws_module._launch_args(second, origins, 16, 32, False)
+    assert other is not args and list(other.srcs) == [t.data_ptr() for t in second]
+    batched = ws_module._launch_args(first, torch.zeros((3, 2, 2), dtype=torch.int32), 16, 32, True)
+    assert (args.shape, args.views, batched.shape) == ((2, 2, 16, 32), None, (2, 3, 2, 16, 32))
+    mixed = ws_module._launch_args([first[0], first[1][0]], origins, 16, 32, False)
+    assert mixed.shape == (1536,)
+    assert [v[:3] for v in mixed.views] == [((2, 16, 32), (512, 32, 1), 0), ((16, 32), (32, 1), 1024)]
+    with pytest.raises(ValueError, match="contiguous"):
+        ws_module._launch_args([first[0][:, :, ::2], first[1]], origins, 16, 32, False)
 
 
 def jax_mosaic_to_port(m, device="cpu"):

@@ -15,9 +15,10 @@
 //
 // What bounds it on this card: bytes. A single panorama copies four
 // 2 x 272 x 512 windows (12001^2, 6000^2, 3000^2, 1500^2 tables): 4.46 MB
-// each way, ~2.7 us at 3.35 TB/s, so launch latency dominates. The batch of
-// 256 viewpoints copies 1.14 GB each way, 0.68 ms at 3.35 TB/s: there the
-// copy itself is the cost.
+// each way, ~2.7 us at 3.35 TB/s. On an H100 the kernel takes ~3 us
+// (chip_smoke.py's device_ms), so a call costs what the host spends on it,
+// and the wrapper caches what it can. The batch of 256 viewpoints copies
+// 1.14 GB each way, 0.68 ms at 3.35 TB/s: there the copy itself is the cost.
 //
 // Design: the grid runs over (groups of output rows, level, viewpoint); each
 // warp copies one output row, so a block of 8 warps covers 8 rows. Per-level
@@ -92,22 +93,25 @@ extern "C" {
 
 const char* error_string(int err) { return cudaGetErrorString((cudaError_t)err); }
 
-// n levels, batch viewpoints; srcs/dsts: host arrays of device pointers
-// (dst l holds [batch, planes_l, wsy, wsx]); planes/hs/ws: host arrays of
-// each table's leading size and (h, w); origins: device int32
-// [batch, n, 2] (sy, sx); the single-viewpoint copies are batch = 1.
-// Returns cudaGetLastError(), or cudaErrorInvalidValue when n or batch is
-// out of range.
-int window_slice_multi_batched(int n, int batch, const void* const* srcs, void* const* dsts,
+// n levels, batch viewpoints; srcs: host array of the tables' device
+// pointers; dst: one device buffer holding the levels one after another,
+// level l as [batch, planes_l, wsy, wsx]; planes/hs/ws: host arrays of each
+// table's leading size and (h, w); origins: device int32 [batch, n, 2]
+// (sy, sx); the single-viewpoint copies are batch = 1. Returns
+// cudaGetLastError(), or cudaErrorInvalidValue when n or batch is out of
+// range.
+int window_slice_multi_batched(int n, int batch, const void* const* srcs, void* dst,
                                const int* planes, const int* hs, const int* ws,
                                const int* origins, int wsy, int wsx, void* stream) {
   if (n < 1 || n > MAX_LEVELS || batch < 1 || batch > MAX_BATCH || wsy < 1 || wsx < 1)
     return (int)cudaErrorInvalidValue;
   SliceParams p = {};
   int max_rows = 0;
+  uint32_t* d = static_cast<uint32_t*>(dst);
   for (int l = 0; l < n; ++l) {
     p.src[l] = static_cast<const uint32_t*>(srcs[l]);
-    p.dst[l] = static_cast<uint32_t*>(dsts[l]);
+    p.dst[l] = d;
+    d += (size_t)batch * planes[l] * wsy * wsx;
     p.planes[l] = planes[l];
     p.h[l] = hs[l];
     p.w[l] = ws[l];

@@ -6,6 +6,9 @@ the checkout, under a file name keyed by a hash of the source, then loaded
 with ctypes. Nothing here runs when a module is imported: the CPU tests
 import every module on machines without nvcc.
 
+It also holds what every wrapper needs to launch a kernel on PyTorch's
+current stream: `current_stream` and `on_device`.
+
 Flags: ``sm_90a`` (Hopper), ``-O3``, and neither ``--use_fast_math`` nor
 ``-ftz=true``: the window copy moves packed-normal words whose bit patterns
 are float32 denormals, and the crossing search must compare exactly as the
@@ -14,6 +17,7 @@ plain PyTorch version does.
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import hashlib
 import os
@@ -21,6 +25,8 @@ import shutil
 import subprocess
 import threading
 from pathlib import Path
+
+import torch
 
 SRC_DIR = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent.parent / "build" / "topo_renderer_tpu_torch"
@@ -92,3 +98,20 @@ def load(name: str) -> ctypes.CDLL:
                 _finish_build(name, started)
             lib = _libs[name] = ctypes.CDLL(str(_lib_path(name)))
         return lib
+
+
+def current_stream(device: torch.device) -> int:
+    """The handle of PyTorch's current CUDA stream on ``device``, the stream
+    a kernel of this package launches on: the value of
+    ``torch.cuda.current_stream(device).cuda_stream``, without building a
+    Stream object through several Python calls."""
+    return torch._C._cuda_getCurrentRawStream(device.index)
+
+
+def on_device(device: torch.device):
+    """The context a wrapper launches in: ``torch.cuda.device(device)``
+    where ``device`` is not the current CUDA device, nothing where it is
+    (the usual case, which then costs no device switch)."""
+    if device.index is None or device.index == torch.cuda.current_device():
+        return contextlib.nullcontext()
+    return torch.cuda.device(device)

@@ -26,6 +26,8 @@ import torch
 from topo_renderer_tpu_torch import cuda_build
 
 M_INIT = -3.0e38  # running-max start value of the TPU kernel
+CHUNK = 128  # csrc/crossing.cu's profile steps per streamed chunk
+MAX_STEPS = 1 << 24  # the kernel writes kstar as a float32 step index: exact up to 2^24
 BIG = 3.0e38  # the reductions' empty-set values (theta_hi of sky rows, -m_lo)
 BIGKEY = 16777216.0  # 2^24: the packed key of a sky row (k = 16384)
 # Cap on the elements of one [N, rows, W] temporary of the reductions.
@@ -67,7 +69,7 @@ def _kernel_lib():
     if _lib is None:
         lib = cuda_build.load("crossing")
         p, i = ctypes.c_void_p, ctypes.c_int
-        lib.crossing_search.argtypes = [p, p, p, p, p, p, p, i, i, i, p, p, p, p, p, p, p]
+        lib.crossing_search.argtypes = [p, p, p, p, p, i, i, i, p, p]
         lib.crossing_search.restype = ctypes.c_int
         lib.error_string.argtypes = [ctypes.c_int]
         lib.error_string.restype = ctypes.c_char_p
@@ -104,23 +106,21 @@ def crossing_search(e_prof, a0, a1, a2, thresh):
     for x in (e_prof, a0, a1, a2, thresh):
         if not x.is_contiguous():
             raise ValueError("crossing_search's CUDA kernel takes contiguous tensors")
-    lib = _kernel_lib()
     n, w = e_prof.shape
     h = thresh.shape[0]
-    outs = [torch.empty((h, w), dtype=torch.float32, device=e_prof.device) for _ in range(6)]
-    t_ranked = torch.empty((h,), dtype=torch.float32, device=e_prof.device)
-    row_of_rank = torch.empty((h,), dtype=torch.int32, device=e_prof.device)
-    with torch.cuda.device(e_prof.device):
-        stream = torch.cuda.current_stream().cuda_stream
+    if n > MAX_STEPS:
+        raise ValueError(f"crossing_search's CUDA kernel takes at most {MAX_STEPS} steps, got {n}")
+    lib = _kernel_lib()
+    out = torch.empty((6, h, w), dtype=torch.float32, device=e_prof.device)
+    with cuda_build.on_device(e_prof.device):
         err = lib.crossing_search(
-            e_prof.data_ptr(), a0.data_ptr(), a1.data_ptr(), a2.data_ptr(),
-            thresh.data_ptr(), t_ranked.data_ptr(), row_of_rank.data_ptr(),
-            n, w, h, *(o.data_ptr() for o in outs), stream,
+            e_prof.data_ptr(), a0.data_ptr(), a1.data_ptr(), a2.data_ptr(), thresh.data_ptr(),
+            n, w, h, out.data_ptr(), cuda_build.current_stream(e_prof.device),
         )
     crossing_search.launches += 1
     if err:
         raise RuntimeError(f"crossing_search launch failed: {lib.error_string(err).decode()}")
-    return tuple(outs)
+    return out.unbind(0)
 
 
 def crossing_reductions(m_prof, thresh, payloads=None):
