@@ -6,14 +6,16 @@
 
 Phases (any failure exits non-zero):
   1. the card's name and power limit (nvidia-smi), torch and CUDA versions;
-  2. build every CUDA kernel of the panorama paths from ``topo_renderer_tpu_torch/csrc``
+  2. build every CUDA kernel of the port from ``topo_renderer_tpu_torch/csrc``
      (one nvcc per source, all started together);
   3. hold each kernel against its plain PyTorch version on the card at the
-     shapes the panoramas give it: K1 (crossing search), K2/K4 (window
+     shapes the panoramas and the fast frame give it: K1 (crossing search), K2/K4 (window
      copies) and K3 (the batched window copy, 256 viewpoints) must agree
-     exactly, bit for bit. K1 also on ties, N = 509 (not a multiple of its
-     chunk), crossings and NaNs at chunk edges, shuffled rows at the batch
-     shape and an unaligned profile; K2 also on two table sets in turn;
+     exactly, bit for bit. K1 also at the fast frame's shape (N 512, W 768,
+     H 1056; level and with rows past -pi/2), on ties, N = 509 (not a
+     multiple of its chunk), crossings and NaNs at chunk edges, shuffled rows
+     at the batch shape and an unaligned profile; K2 also on two table sets
+     in turn;
   4. drive the engine on 100 COP-90-shaped tiles (10 x 10 tiles of 1201^2
      texels at 3", a 12001^2 mosaic) and ~256 peaks:
      a. three 4096 x 1024 atmospheric LOD panoramas of 512 steps with
@@ -25,9 +27,22 @@ Phases (any failure exits non-zero):
         the call's panoramas/s is printed;
      c. the non-clipmap fallback: `render_batch` of 4 viewpoints with
         ``PanoramaSpec(1024, 256, n_steps=512, n_refine=2)``; K1 never
-        launches and each eye equals its single-eye render.
+        launches and each eye equals its single-eye render;
+     d. config 6: the interactive 800 x 450 fast frame (`render(...,
+        fast=True, wire="yuv420")`, 512 steps) for 20 frames, each with one
+        host pull and the host decode; every frame launches K1 and K2 once
+        and K3 never, hits terrain and sky and has > 200 colours. Then
+        frames 1.1 rad below and above the horizon and one whose window
+        crosses azimuth ±pi; ms per frame on the host clock, the host syncs
+        inside a frame, the device-only ms by CUDA events (the frame
+        captured into a CUDA graph and replayed), and the profiled frame's
+        device busy share;
+     e. config 3: the same frame with the label pass, its bytes in the same
+        wire vector; at least one label is visible and ``finish``'s labels
+        equal those of the frame rendered without the wire.
      Small scenes rendered on the card and on the CPU (plain versions) must
-     agree, for the fast preset and for the fallback's spec;
+     agree, for the fast preset, the fallback's spec and the fast frame
+     (level, 1.1 rad down and across azimuth ±pi);
   5. each kernel's own device time with torch.profiler, after the paths'
      timings so that no profiler has run before them, and the ``kernels``
      JSON line. Per-call times (CUDA events) come from phases 3 and 4.
@@ -82,6 +97,58 @@ def cuda_ms(fn, iters: int, warmup: int = 1) -> float:
     return start.elapsed_time(end) / iters
 
 
+def host_syncs(fn):
+    """The operations inside one call of ``fn`` that make the host wait for
+    the device (torch's sync debug mode), each as the innermost line of
+    this repository on its stack and the innermost line of all."""
+    import traceback
+    import warnings
+
+    import torch
+
+    found = []
+
+    def record(message, category, filename, lineno, file=None, line=None):
+        if "called a synchronizing CUDA operation" in str(message):
+            stack = [f for f in traceback.extract_stack()[:-1] if not f.filename.endswith("warnings.py")]
+            ours = [f for f in stack if "topo_renderer_tpu_torch" in f.filename or "chip_smoke" in f.filename]
+            found.append(" in ".join(f"{'/'.join(f.filename.rsplit('/', 2)[-2:])}:{f.lineno} {f.name}"
+                                     for f in (stack[-1], *ours[-1:])))
+
+    with warnings.catch_warnings():
+        warnings.simplefilter("always")
+        warnings.showwarning = record
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            fn()
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+    torch.cuda.synchronize()
+    return found
+
+
+def graph_ms(fn, replays: int = 20):
+    """Device-only ms of one call of ``fn`` by CUDA events: ``fn`` captured
+    once into a CUDA graph and replayed back to back, so that no host work
+    runs between its kernels. Returns (ms, None), or (None, the reason)
+    where ``fn`` cannot be captured (a host sync inside it, for one); the
+    run goes on either way."""
+    import torch
+
+    fn()
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    try:
+        with torch.cuda.graph(graph, capture_error_mode="relaxed"):
+            fn()
+    except Exception as exc:  # noqa: BLE001 - a measurement that cannot be made is reported
+        torch.cuda.synchronize()
+        return None, f"{type(exc).__name__}: {str(exc).strip().splitlines()[0][:160]}"
+    ms = cuda_ms(graph.replay, iters=replays)
+    del graph
+    return ms, None
+
+
 def device_ms(fn, iters: int) -> float:
     """Device time per call of ``fn``: the self device time torch.profiler
     records over ``iters`` calls, over ``iters``. Host time between launches
@@ -104,13 +171,14 @@ def device_ms(fn, iters: int) -> float:
 
 def device_times(kernels) -> None:
     """Phase 5: each kernel's own device time on its phase-3 inputs, into
-    ``device_ms`` (``batch_shape.device_ms`` for K1 at the batch shape).
-    It runs after the paths' timings: the profiler is not started before
-    them."""
+    ``device_ms`` (``batch_shape.device_ms`` and ``fast_shape.device_ms``
+    for K1 at the batch path's and the fast frame's shapes). It runs after
+    the paths' timings: the profiler is not started before them."""
     for k in kernels:
         for where, fn, iters in k.pop("device_fns"):
             (k[where] if where else k)["device_ms"] = device_ms(fn, iters)
-        extra = f", batch shape {k['batch_shape']['device_ms']:.4f} ms" if "batch_shape" in k else ""
+        extra = "".join(f", {where.replace('_', ' ')} {k[where]['device_ms']:.4f} ms"
+                        for where in ("batch_shape", "fast_shape") if where in k)
         log(f"{k['name']}: {k['device_ms']:.4f} ms on the device per launch{extra}")
 
 
@@ -191,10 +259,18 @@ def build_engine(device, tiles, peaks):
 
 # ---- phase 3: kernels against their plain versions -------------------------
 
-def crossing_inputs(n=512, ws=2048, h=1024):
+def row_thresholds(h, half, centre=0.0):
+    """tan(elevation) of ``h`` pixel rows from ``centre + half`` down to
+    ``centre - half``; rows past -pi/2 flip the sign of their tangent."""
+    rows = (np.arange(h, dtype=np.float32) + 0.5) / h
+    return np.tan(np.float32(centre + half) - rows * np.float32(2 * half)).astype(np.float32)
+
+
+def crossing_inputs(n=512, ws=2048, h=1024, half=None, centre=0.0):
     """A profile like the panorama's: tan-elevation random walks with
-    spikes, normal codes as payloads, rows' tan(elevation) thresholds
-    decreasing down the image."""
+    spikes, normal codes as payloads, rows' tan(elevation) thresholds from
+    ``centre + half`` down to ``centre - half`` (default: a full circle's
+    square pixels at profile stride 2)."""
     import torch
 
     rng = np.random.default_rng(SEED + 2)
@@ -202,9 +278,7 @@ def crossing_inputs(n=512, ws=2048, h=1024):
     e += (rng.random((n, ws)) < 0.03) * rng.uniform(0.05, 0.4, (n, ws))
     e[rng.random((n, ws)) < 0.01] = -1.0e30  # samples outside the mosaic
     a = [rng.integers(0, 1024, (n, ws)).astype(np.float32) for _ in range(3)]
-    half = 0.5 * 2 * np.pi * h / (2 * ws)
-    rows = (np.arange(h, dtype=np.float32) + 0.5) / h
-    t = np.tan(np.float32(half) - rows * np.float32(2 * half)).astype(np.float32)
+    t = row_thresholds(h, 0.5 * 2 * np.pi * h / (2 * ws) if half is None else half, centre)
     dev = torch.device("cuda")
     return [torch.from_numpy(x.astype(np.float32)).to(dev) for x in (e, *a)] + [torch.from_numpy(t).to(dev)]
 
@@ -272,14 +346,48 @@ def check_crossing():
     log(f"K1 crossing_search: exact on N=512 W=512 H=256 (the batch path's shape); "
         f"{batch_shape['ms']:.4f} ms per call (plain {batch_shape['plain_ms']:.3f} ms, bound "
         f"{batch_shape['bound_ms']:.5f} ms)")
+    ef, f0, f1, f2, tf, steep = fast_frame_crossing_inputs()
+    want_f = K.crossing_search_plain(ef, f0, f1, f2, tf)
+    for name, rows in (("level", tf), ("1.1 rad down", steep)):
+        want_rows = want_f if rows is tf else K.crossing_search_plain(ef, f0, f1, f2, rows)
+        if not all(torch.equal(g, w) for g, w in zip(K.crossing_search(ef, f0, f1, f2, rows), want_rows)):
+            raise AssertionError(f"K1 differs from the plain version at the fast frame's shape ({name})")
+    fast_shape = dict(
+        shape=list(ef.shape) + [tf.shape[0]],
+        ms=cuda_ms(lambda: K.crossing_search(ef, f0, f1, f2, tf), iters=200, warmup=3),
+        plain_ms=cuda_ms(lambda: K.crossing_search_plain(ef, f0, f1, f2, tf), iters=3),
+        bound_ms=1e3 * crossing_bytes(ef, want_f[0]) / HBM_BYTES_PER_S,
+    )
+    log(f"K1 crossing_search: exact on N={ef.shape[0]} W={ef.shape[1]} H={tf.shape[0]} (the 800x450 fast "
+        f"frame's shape), level and 1.1 rad down (rows past -pi/2); {fast_shape['ms']:.4f} ms per call "
+        f"(plain {fast_shape['plain_ms']:.3f} ms, bound {fast_shape['bound_ms']:.5f} ms)")
     return dict(
         name="crossing_search", route="cuda", source="topo_renderer_tpu_torch/csrc/crossing.cu",
         replaces="topo_renderer_tpu/ops/pallas_crossing.py:124", max_abs_err=err, ms=ms,
         plain_ms=plain_ms, bound_ms=1e3 * nbytes / HBM_BYTES_PER_S, bound_by="bytes", library_ms=None,
-        batch_shape=batch_shape,
+        batch_shape=batch_shape, fast_shape=fast_shape,
         device_fns=[(None, lambda: K.crossing_search(e, a0, a1, a2, t), 50),
-                    ("batch_shape", lambda: K.crossing_search(eb, b0, b1, b2, tb), 200)],
+                    ("batch_shape", lambda: K.crossing_search(eb, b0, b1, b2, tb), 200),
+                    ("fast_shape", lambda: K.crossing_search(ef, f0, f1, f2, tf), 200)],
     )
+
+
+def fast_frame_crossing_inputs():
+    """K1's inputs at the 800 x 450 fast frame's shape (`fast_view_spec` at
+    the 45 degree fov bucket: a 1536 x 1056 window at profile stride 2, so N
+    512, W 768, H 1056), with the window's row thresholds for a level view
+    and for a view 1.1 rad down, whose lowest rows pass -pi/2."""
+    import math
+
+    import torch
+
+    from topo_renderer_tpu_torch.ops.raycast import fast_view_spec
+
+    spec, half_win, _ = fast_view_spec(width=800, height=450, fov_hint=math.radians(45.0), n_steps=512)
+    ws = spec.width // spec.profile_stride
+    e, a0, a1, a2, t = crossing_inputs(n=spec.n_steps, ws=ws, h=spec.height, half=half_win)
+    steep = torch.from_numpy(row_thresholds(spec.height, half_win, centre=-1.1)).to(t.device)
+    return e, a0, a1, a2, t, steep
 
 
 def check_crossing_edges():
@@ -485,9 +593,11 @@ def expect_counts(what, counts, want):
             raise AssertionError(f"{what}: {name} launched {counts[name]} times, not {n}")
 
 
-def frame_profile(render, top=12):
+def frame_profile(render, top=12, host_top=0):
     """Device time of one frame by kernel (torch.profiler), and the share of
-    the frame's host-clock time the device was busy."""
+    the frame's host-clock time the device was busy; with ``host_top`` also
+    the host operations that took the most host time. Returns (host ms,
+    device busy ms), or None when the profiler saw no device time."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -500,11 +610,15 @@ def frame_profile(render, top=12):
     device_us = sum(e.self_device_time_total for e in events)
     if device_us <= 0:
         log("profile: the profiler saw no device time")
-        return
+        return None
     log(f"profile: frame {wall_us / 1e3:.2f} ms host clock, device busy {device_us / 1e3:.2f} ms "
         f"({100 * device_us / wall_us:.1f}%), {sum(e.count for e in events)} device ops")
     for e in sorted(events, key=lambda e: -e.self_device_time_total)[:top]:
         log(f"  {e.self_device_time_total / 1e3:8.3f} ms  x{e.count:<4d} {e.key[:90]}")
+    host = [e for e in prof.key_averages() if e.device_type == torch.autograd.DeviceType.CPU]
+    for e in sorted(host, key=lambda e: -e.self_cpu_time_total)[:host_top]:
+        log(f"  host {e.self_cpu_time_total / 1e3:8.3f} ms  x{e.count:<4d} {e.key[:85]}")
+    return wall_us / 1e3, device_us / 1e3
 
 
 def build_scene():
@@ -660,11 +774,248 @@ def fallback_path(engine, centre, batch=4):
     return counts
 
 
+# ---- phase 4d/4e: the interactive fast frame (configs 6 and 3) ----------------
+
+FAST_W, FAST_H = 800, 450
+
+
+def local_axes(cam):
+    """Float64 (north, east) at the camera's eye."""
+    eye = cam.eye.double().numpy()
+    lon, lat = np.arctan2(eye[1], eye[0]), np.arcsin(eye[2] / np.linalg.norm(eye))
+    north = np.array([-np.sin(lat) * np.cos(lon), -np.sin(lat) * np.sin(lon), np.cos(lat)])
+    return north, np.array([-np.sin(lon), np.cos(lon), 0.0])
+
+
+def yaw_toward(cam, azimuth):
+    """Yaw that points ``cam`` at ``azimuth`` (radians from north, eastward).
+    Yaw turns the canonical frame's x axis toward its z axis, and the
+    canonical frame is carried onto the eye's by the shortest arc from
+    (0, -1, 0) to up (`camera.rs:99-111`)."""
+    import torch
+
+    from topo_renderer_tpu_torch.ops import mathx
+
+    north, east = local_axes(cam)
+    target = np.cos(azimuth) * north + np.sin(azimuth) * east
+    q = mathx.quat_from_rotation_arc(torch.tensor([0.0, -1.0, 0.0]), cam.up())
+    x_w, z_w = (mathx.quat_rotate(q, torch.tensor(v)).double().numpy() for v in ([1.0, 0, 0], [0, 0, 1.0]))
+    return float(np.arctan2(target @ z_w, target @ x_w))
+
+
+def view_azimuth(cam):
+    north, east = local_axes(cam)
+    d = cam.direction().double().numpy()
+    return float(np.arctan2(d @ east, d @ north))
+
+
+def fast_camera(engine, centre):
+    """The fast frames' camera: 300 m above the scene's centre, aimed at a
+    peak that a 2048 x 512 panorama from there shows, so the label pass has
+    a visible peak to report."""
+    import dataclasses
+
+    from topo_renderer_tpu_torch.ops.panorama import PanoramaSpec
+
+    cam = camera_at(*centre, 300.0)
+    spec = PanoramaSpec.fast(2048, 512, n_steps=512)
+    pano = engine.render_panorama(cam, spec, composite=False, host_copy=False)
+    seen = sorted(xy for lst in pano.visible_labels.values() for _, xy in lst)
+    if not seen:
+        raise AssertionError("fast frame: the panorama from the camera shows no peak to aim at")
+    x, y = seen[len(seen) // 2]
+    e_lo, e_hi = spec.elevation_range()
+    azimuth = spec.azimuth_start + (x + 0.5) / spec.width * spec.azimuth_span
+    elevation = e_hi - (y + 0.5) / spec.height * (e_hi - e_lo)
+    # A positive pitch looks down: the canonical frame's up is (0, -1, 0).
+    return dataclasses.replace(cam, yaw=yaw_toward(cam, azimuth), pitch=-elevation)
+
+
+def wire_frame(engine, cam, with_labels):
+    """One interactive frame as the web server runs it: render with the
+    yuv420 wire on the card, one host pull, decode and label pass on the
+    host. Returns the result and ``finish``'s (frame, labels, layouts,
+    names)."""
+    res = engine.render(cam, FAST_W, FAST_H, n_steps=512, fast=True, with_labels=with_labels,
+                        wire="yuv420", host_copy=False)
+    return res, res.finish(res.color.cpu().numpy())
+
+
+def timed_wire_frames(engine, cam, with_labels, frames, what):
+    """``frames`` wire frames, each with its launch counts checked (K1 and
+    K2 once, K3 never). Returns the per-frame host-clock ms (render, pull,
+    decode), the last frame's counts and its result."""
+    import torch
+
+    from topo_renderer_tpu_torch.render import transport
+
+    wire_frame(engine, cam, with_labels)  # allocator warm-up
+    torch.cuda.synchronize()
+    host_ms = []
+    for i in range(frames):
+        reset_counts()
+        t0 = time.perf_counter()
+        res, out = wire_frame(engine, cam, with_labels)
+        host_ms.append(1e3 * (time.perf_counter() - t0))
+        counts = read_counts()
+        expect_counts(f"{what} {i}", counts, {"crossing_search": 1, "window_slice_multi": 1,
+                                              "window_slice_multi_batched": 0})
+    img = out[0]
+    n_pix = transport.pixel_bytes(FAST_H, FAST_W, "yuv420")
+    hit = float(res.hit.float().mean())
+    colours = len(np.unique(img.reshape(-1, 3), axis=0))
+    finite = bool(torch.isfinite(res.color_linear).all())
+    if img.shape != (FAST_H, FAST_W, 3) or res.color.shape[0] < n_pix or not finite:
+        raise AssertionError(f"{what}: bad output")
+    if not 0.0 < hit < 1.0 or colours <= 200:
+        raise AssertionError(f"{what}: hit {hit:.3f}, {colours} colours")
+    return host_ms, counts, res, out
+
+
+def ms_stats(host_ms):
+    return f"mean {np.mean(host_ms):.2f}, median {np.median(host_ms):.2f}, min {np.min(host_ms):.2f} ms"
+
+
+def fast_frame_path(engine, cam, frames=20):
+    """Phase 4d, config 6: the 800 x 450 fast frame without labels through
+    the yuv420 wire, one host pull per frame; then frames 1.1 rad below and
+    above the horizon and one whose window crosses azimuth ±pi. Returns the
+    launch counts of one frame, the per-frame host-clock ms, the no-pull ms
+    by CUDA events and the profiled frame's (host ms, device busy ms)."""
+    import dataclasses
+    import math
+
+    import torch
+
+    host_ms, counts, res, (img, labels, _, _) = timed_wire_frames(engine, cam, False, frames, "fast frame")
+    if labels:
+        raise AssertionError("fast frame without labels reported labels")
+    log(f"fast frame (config 6): {FAST_W}x{FAST_H}, 512 steps, yuv420 wire ({res.color.shape[0]} bytes), "
+        f"{frames} frames, host clock incl. pull and decode: {ms_stats(host_ms)}; hit "
+        f"{float(res.hit.float().mean()):.3f}, {len(np.unique(img.reshape(-1, 3), axis=0))} colours; "
+        f"view azimuth {view_azimuth(cam):.3f} rad")
+    seam_cam = dataclasses.replace(cam, yaw=yaw_toward(cam, math.pi - 0.2))
+    for name, c in (("1.1 rad down", dataclasses.replace(cam, pitch=1.1)),
+                    ("1.1 rad up", dataclasses.replace(cam, pitch=-1.1)),
+                    ("window across azimuth ±pi", seam_cam)):
+        reset_counts()
+        res, (img, _, _, _) = wire_frame(engine, c, False)
+        torch.cuda.synchronize()
+        expect_counts(f"fast frame {name}", read_counts(), {"crossing_search": 1, "window_slice_multi": 1,
+                                                            "window_slice_multi_batched": 0})
+        if img.shape != (FAST_H, FAST_W, 3) or not bool(torch.isfinite(res.color_linear).all()):
+            raise AssertionError(f"fast frame {name}: bad output")
+        hit = float(res.hit.float().mean())
+        if name == "1.1 rad down" and not hit > 0.5:
+            raise AssertionError(f"fast frame {name}: hit {hit:.3f}, the terrain below is missing")
+        log(f"fast frame {name}: view azimuth {view_azimuth(c):.3f} rad, hit {hit:.3f}")
+    if abs(view_azimuth(seam_cam)) < math.pi - 0.3:
+        raise AssertionError("fast frame: the seam frame does not look across azimuth ±pi")
+    # The profile first: releasing the CUDA graph's memory pool makes the
+    # next frame allocate anew.
+    profiled = frame_profile(lambda: wire_frame(engine, cam, False))
+    dev_ms = frame_device_ms(engine, cam, False, "fast frame")
+    return counts, host_ms, dev_ms, profiled
+
+
+def frame_device_ms(engine, cam, with_labels, what):
+    """The wire frame's device-only ms (`graph_ms`: render and encode,
+    without the pull) and the host syncs inside it (`host_syncs`), logged."""
+    def frame():
+        engine.render(cam, FAST_W, FAST_H, n_steps=512, fast=True, with_labels=with_labels,
+                      wire="yuv420", host_copy=False)
+
+    syncs = host_syncs(frame)
+    ms, why = graph_ms(frame)
+    log(f"{what}: host syncs inside a frame: {len(syncs)}{' at ' + ', '.join(syncs[:8]) if syncs else ''}; "
+        f"device only (CUDA graph of the frame, 20 replays back to back, CUDA events): "
+        f"{f'{ms:.3f} ms' if why is None else 'not measured (' + why + ')'}")
+    return ms
+
+
+def labelled_fast_frame_path(engine, cam, frames=20, pairs=10):
+    """Phase 4e, config 3: the same frame with the label pass, whose bytes
+    ride in the same wire vector. At least one label must be visible, and
+    ``finish``'s labels must equal those of the frame rendered without the
+    wire. Returns the launch counts of one frame, the per-frame host-clock
+    ms and the label pass's ms per frame."""
+    host_ms, counts, res, (_, labels, layouts, _) = timed_wire_frames(engine, cam, True, frames,
+                                                                       "labelled fast frame")
+    n_labels = sum(len(v) for v in labels.values())
+    plain = engine.render(cam, FAST_W, FAST_H, n_steps=512, fast=True, composite=False, host_copy=False)
+    if n_labels < 1 or labels != plain.visible_labels:
+        raise AssertionError(f"labelled fast frame: {n_labels} labels, equal to the plain frame's: "
+                             f"{labels == plain.visible_labels}")
+    log(f"labelled fast frame (config 3): {frames} frames, host clock incl. pull, decode and label pass: "
+        f"{ms_stats(host_ms)}; {n_labels} labels visible ({len(layouts)} laid out), equal to the "
+        f"frame without the wire")
+    # Frames with and without labels in turn, so that both see the same
+    # host: the label pass's cost is the median of the pairs' differences.
+    diffs = []
+    for _ in range(pairs):
+        t = []
+        for with_labels in (False, True):
+            t0 = time.perf_counter()
+            wire_frame(engine, cam, with_labels)
+            t.append(1e3 * (time.perf_counter() - t0))
+        diffs.append(t[1] - t[0])
+    overhead = float(np.median(diffs))
+    log(f"label overhead: {overhead:.2f} ms per frame (median of {pairs} pairs of frames without and with "
+        f"labels in turn)")
+    label_pass_steps(engine, cam)
+    frame_profile(lambda: wire_frame(engine, cam, True), host_top=8)
+    frame_device_ms(engine, cam, True, "labelled fast frame")
+    return counts, host_ms, overhead
+
+
+def label_pass_steps(engine, cam, reps=20):
+    """Host ms of each step that the label pass adds to a wire frame, each
+    timed alone between synchronizations (median of ``reps``): the padded
+    peak arrays, the view-projection built on the host, the visibility pass
+    and the label bytes queued on the card (host time to queue them), and
+    ``finish`` with labels against ``finish`` without."""
+    import torch
+
+    from topo_renderer_tpu_torch.render import engine as engine_mod
+    from topo_renderer_tpu_torch.render import transport
+
+    def host_ms(fn):
+        times = []
+        for _ in range(reps):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            fn()
+            times.append(1e3 * (time.perf_counter() - t0))
+        torch.cuda.synchronize()
+        return float(np.median(times))
+
+    res, _ = wire_frame(engine, cam, True)
+    bare, _ = wire_frame(engine, cam, False)
+    _, pos, valid = engine._padded_peaks()
+    packed = engine_mod._fast_frame_labels(cam, {"depth": res.depth}, pos, valid, width=FAST_W, height=FAST_H,
+                                           tolerance_rel=0.05)
+    buf, bare_buf = res.color.cpu().numpy(), bare.color.cpu().numpy()
+    steps = {
+        "padded peak arrays": engine._padded_peaks,
+        "view-projection on the host": lambda: cam.build_view_proj_matrix(float(FAST_W), float(FAST_H)),
+        "visibility pass, queued": lambda: engine_mod._fast_frame_labels(
+            cam, {"depth": res.depth}, pos, valid, width=FAST_W, height=FAST_H, tolerance_rel=0.05),
+        "label bytes, queued": lambda: transport.encode_labels_u8(packed),
+        "finish with labels": lambda: res.finish(buf),
+        "finish without labels": lambda: bare.finish(bare_buf),
+    }
+    log("label pass steps (host ms, median of %d): %s" % (
+        reps, ", ".join(f"{name} {host_ms(fn):.3f}" for name, fn in steps.items())))
+
+
 def small_scene_agreement():
     """One small scene on the card and on the CPU (plain versions): the
     same frame up to float rounding. Dither seeds hash world positions, so
     an ulp of difference changes a pixel's dither; the check holds hit masks
     and depth, which do not hash."""
+    import dataclasses
+    import math
+
     import torch
 
     from topo_renderer_tpu_torch.ops.panorama import PanoramaSpec
@@ -685,6 +1036,46 @@ def small_scene_agreement():
                                  f"depth diff {rel:.2e}, hit {g.hit.mean():.3f}")
         n_g, n_c = (sum(len(v) for v in r.visible_labels.values()) for r in (g, c))
         log(f"small scene {name}: card vs CPU hit agreement {hit_agree:.4f}, max depth diff {rel:.2e}, "
+            f"labels {n_g} / {n_c}")
+    # The fast frame: level, 1.1 rad down (window rows past -pi/2), and a
+    # window across azimuth ±pi.
+    poses = {"fast frame": cam, "fast frame 1.1 rad down": dataclasses.replace(cam, pitch=1.1),
+             "fast frame across ±pi": dataclasses.replace(cam, yaw=yaw_toward(cam, math.pi - 0.2))}
+    for name, pose in poses.items():
+        g, c = (engines[dev].render(pose, 320, 180, n_steps=256, fast=True, composite=False)
+                for dev in ("cuda", "cpu"))
+        # Distance, relative to itself. Where a pixel's four window texels
+        # include sky, the blend carries FAR (500 km) into its distance, so a
+        # last bit of the blend weight moves that pixel by up to a percent
+        # (7.8e-3 on the level frame); elsewhere the readings are ~5e-5. The
+        # p99 and the share above 2e-3 catch a warp that moves distances;
+        # the max bounds the skyline's pixels.
+        hit_agree = float((g.hit == c.hit).mean())
+        both = g.hit & c.hit
+        ddepth = float(np.abs(g.depth - c.depth)[both].max()) if both.any() else 0.0
+        rel_img = np.where(both, np.abs(g.distance - c.distance) / c.distance, 0.0)
+        rel = rel_img[both] if both.any() else np.zeros(1)
+        sky = np.pad(~both, 2, constant_values=False)
+        near_sky = np.zeros_like(both)
+        for dy in range(5):
+            for dx in range(5):
+                near_sky |= sky[dy : dy + both.shape[0], dx : dx + both.shape[1]]
+        p99, over, inland = np.quantile(rel, 0.99), float((rel > 2e-3).mean()), rel_img[~near_sky].max(initial=0.0)
+        y, x = np.unravel_index(np.argmax(rel_img), rel_img.shape)
+        around = c.distance[max(y - 1, 0) : y + 2, max(x - 1, 0) : x + 2]
+        # Colours at the golden tolerance: a last bit flips a pixel's dither.
+        near = float((np.abs(g.color.astype(np.int16) - c.color.astype(np.int16)).max(-1) <= 2).mean())
+        if (hit_agree < 0.99 or ddepth > 1e-3 or p99 > 5e-4 or over > 0.01 or rel.max() > 2e-2 or near < 0.99
+                or not g.hit.any()):
+            raise AssertionError(f"small scene {name}: card vs CPU hit agreement {hit_agree:.4f}, "
+                                 f"depth diff {ddepth:.2e}, relative distance diff p99 {p99:.2e} max "
+                                 f"{rel.max():.2e} above 2e-3 {over:.4f}, colours within 2/255 {near:.4f}, "
+                                 f"hit {g.hit.mean():.3f}")
+        n_g, n_c = (sum(len(v) for v in r.visible_labels.values()) for r in (g, c))
+        log(f"small scene {name}: card vs CPU hit agreement {hit_agree:.4f}, max depth diff {ddepth:.2e}, "
+            f"relative distance diff p99 {p99:.2e} max {rel.max():.2e} (max {inland:.2e} beyond 2 px of sky; "
+            f"at the max, distances {around.min():.0f}..{around.max():.0f} m in its 3x3 pixels), "
+            f"share above 2e-3 {over:.5f}, colours within 2/255 {near:.4f}, hit {g.hit.mean():.3f}, "
             f"labels {n_g} / {n_c}")
     del engines
     torch.cuda.empty_cache()
@@ -726,7 +1117,7 @@ def main(argv) -> int:
     k3 = check_window_slice_batched()
     torch.cuda.empty_cache()
     order = ("name", "route", "source", "replaces", "launches", "max_abs_err", "ms", "device_ms", "plain_ms",
-             "bound_ms", "bound_by", "library_ms", "launches_per_call", "batch_shape")
+             "bound_ms", "bound_by", "library_ms", "launches_per_call", "batch_shape", "fast_shape")
     kernels = [k1, k2, k3, k4]
     if kernels_only:
         device_times(kernels)
@@ -739,13 +1130,17 @@ def main(argv) -> int:
     per_call["panorama"], frame_ms = panorama_path(engine, centre)
     per_call["batch"], batch_ms, panos_per_s = batch_path(engine, centre)
     per_call["fallback"] = fallback_path(engine, centre)
+    cam = fast_camera(engine, centre)
+    per_call["fast_frame"], fast_ms, fast_dev_ms, fast_profile = fast_frame_path(engine, cam)
+    per_call["fast_frame_labels"], labelled_ms, label_ms = labelled_fast_frame_path(engine, cam)
     del engine
     torch.cuda.empty_cache()
     device_times(kernels)
     # ``launches``: one call of the path each kernel serves (K3 and K1: the
     # batch; K2: the single panorama); every path's count is in
     # ``launches_per_call``. ``ms``/``bound_ms`` of K1 are at config 4's
-    # shape, ``batch_shape`` holds them at the batch path's.
+    # shape, ``batch_shape`` and ``fast_shape`` hold them at the batch
+    # path's and the 800 x 450 fast frame's.
     path_of = {"crossing_search": "batch", "window_slice_multi": "panorama",
                "window_slice_multi_batched": "batch", "window_slice": "panorama"}
     for k in kernels:
@@ -754,6 +1149,12 @@ def main(argv) -> int:
     log(f"frame: {frame_ms:.2f} ms (CUDA events); config 5: {panos_per_s:.1f} panoramas/s "
         f"({batch_ms:.1f} ms per call of 256 viewpoints); "
         f"K3 {k3['ms']:.4f} ms vs 256 x K2 {k3['k2_loop_ms']:.3f} ms")
+    busy = (f"device busy {fast_profile[1]:.2f} of {fast_profile[0]:.2f} ms "
+            f"({100 * fast_profile[1] / fast_profile[0]:.1f}%)" if fast_profile else "device busy not measured")
+    log(f"fast frame (config 6): median {np.median(fast_ms):.2f} ms host clock incl. pull and decode, "
+        f"device only {'not measured' if fast_dev_ms is None else f'{fast_dev_ms:.3f} ms'} (CUDA events), "
+        f"{busy}; with labels (config 3): median "
+        f"{np.median(labelled_ms):.2f} ms, label overhead {label_ms:.2f} ms (frames in turn)")
     print(json.dumps({"kernels": [{key: k[key] for key in order if key in k} for k in kernels]}),
           flush=True)
     print(card, flush=True)

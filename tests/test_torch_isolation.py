@@ -70,21 +70,41 @@ def test_engine_needs_cuda_by_default(monkeypatch):
         topo_renderer_tpu_torch.resolve_device(None)
 
 
-def test_cpu_path_launches_no_kernel():
-    n, span = 65, 0.03
-    ps = span / (n - 1)
+SPAN = 0.03
+COUNTERS = (crossing.crossing_search, window_slice.window_slice_multi,
+            window_slice.window_slice_multi_batched, window_slice.window_slice)
+
+
+def _cpu_engine():
+    n = 65
+    ps = SPAN / (n - 1)
     ys, xs = np.mgrid[0:n, 0:n] / (n - 1)
     heights = (1500 + 400 * np.sin(5 * xs) * np.cos(4 * ys)).astype(np.float32)
     engine = RenderEngine(device="cpu")
     engine.add_terrain(
         GeoLocation.from_coord(47, 11), heights,
-        CoordinateTransform((0.0, 0.0), (11.0, 47.0 + span), (ps, ps)),
+        CoordinateTransform((0.0, 0.0), (11.0, 47.0 + SPAN), (ps, ps)),
     )
-    counters = (crossing.crossing_search, window_slice.window_slice_multi,
-                window_slice.window_slice_multi_batched, window_slice.window_slice)
-    for f in counters:
+    for f in COUNTERS:
         f.launches = 0
-    cam = Camera().reset(GeoCoord(47.0 + span / 2, 11.0 + span / 4), 2300.0)
+    return engine, Camera().reset(GeoCoord(47.0 + SPAN / 2, 11.0 + SPAN / 4), 2300.0)
+
+
+def test_cpu_fast_frame_launches_no_kernel_and_exact_frame_raises():
+    engine, cam = _cpu_engine()
+    with pytest.raises(NotImplementedError, match="slice 3"):
+        engine.render(cam, 32, 24)
+    with pytest.raises(ValueError, match="exact_quality"):
+        engine.render(cam, 32, 24, fast=True, exact_quality="best")
+    res = engine.render(cam, 48, 32, n_steps=64, fast=True, wire="yuv420", host_copy=False)
+    frame, labels, _, _ = res.finish(res.color.numpy())
+    assert frame.shape == (32, 48, 3) and labels == {}
+    assert res.depth.device.type == "cpu"
+    assert [f.launches for f in COUNTERS] == [0, 0, 0, 0]
+
+
+def test_cpu_path_launches_no_kernel():
+    engine, cam = _cpu_engine()
     spec = PanoramaSpec.fast(64, 16, n_steps=64, clipmap_threshold=0)
     res = engine.render_panorama(cam, spec, fog="atmosphere")
     assert res.color.shape == (16, 64, 3)
@@ -92,4 +112,18 @@ def test_cpu_path_launches_no_kernel():
     eyes = torch.stack([cam.eye, cam.eye * 1.0001])
     batch = engine.render_batch(eyes, spec, torch.stack([cam.sun_angle.to_vec3()] * 2))
     assert batch.shape == (2, 16, 64, 3) and batch.device.type == "cpu"
-    assert [f.launches for f in counters] == [0, 0, 0, 0]
+    assert [f.launches for f in COUNTERS] == [0, 0, 0, 0]
+
+
+@pytest.mark.parametrize("value", [0.25, [1.0, 2.0, 3.0], np.float64(1.1), torch.tensor([4.0, 5.0], dtype=torch.float64)])
+def test_host_values_stay_on_the_host_device(value):
+    """`f32` rounds as ``jnp.float32`` does and, with no device or the CPU,
+    leaves its value where it is: only a CUDA target takes the pinned copy."""
+    from topo_renderer_tpu_torch.ops.geometry import f32, to_device
+
+    want = torch.as_tensor(value, dtype=torch.float32)
+    for device in (None, "cpu"):
+        got = f32(value, device)
+        assert got.dtype == torch.float32 and got.device.type == "cpu"
+        assert torch.equal(got, want)
+    assert to_device(want, None) is want

@@ -17,10 +17,21 @@ import torch
 R0 = 6_371_000.0
 
 
+def to_device(t: torch.Tensor, device) -> torch.Tensor:
+    """``t.to(device)`` without stalling the host on a host-to-GPU copy: a
+    copy from pageable memory waits for all the work queued on the stream,
+    a copy from pinned memory is queued behind it."""
+    if device is None:
+        return t
+    if t.device.type == "cpu" and torch.device(device).type == "cuda":
+        return t.pin_memory().to(device, non_blocking=True)
+    return t.to(device)
+
+
 def f32(x, device=None) -> torch.Tensor:
     """Python number or tensor -> float32 tensor (the JAX package's
-    ``jnp.float32(x)``)."""
-    return torch.as_tensor(x, dtype=torch.float32, device=device)
+    ``jnp.float32(x)``) on ``device`` (`to_device`)."""
+    return to_device(torch.as_tensor(x, dtype=torch.float32), device)
 
 
 def radians(x: torch.Tensor) -> torch.Tensor:

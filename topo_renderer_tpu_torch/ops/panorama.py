@@ -279,7 +279,7 @@ def extract_clipmap_windows(mosaic, eye, spec: PanoramaSpec):
     int32 origin. Entries are None where the level is gathered in full.
     """
     dev = mosaic.device
-    eye = f32(eye).to(dev)
+    eye = f32(eye, dev)
     n_levels = len(mosaic.mip_shapes)
     use_attr = bool(spec.attrs_from_profile and spec.lod and n_levels)
     gx_e, gy_e = _eye_raster(mosaic, eye)
@@ -383,7 +383,7 @@ def extract_clipmap_windows_batched(mosaic, eyes, spec: PanoramaSpec):
     copy does not apply (see `_window_batch`) the eyes are extracted one by
     one and stacked, as the JAX package vmaps its single-eye extraction.
     """
-    eyes = f32(eyes).to(mosaic.device)
+    eyes = f32(eyes, mosaic.device)
     batch = _window_batch(mosaic, eyes, spec)
     if batch is None:
         per_eye = [extract_clipmap_windows(mosaic, e, spec) for e in eyes]
@@ -549,7 +549,7 @@ def render_panorama(
     (`extract_clipmap_windows`), extracted here when None.
     """
     dev = mosaic.device
-    eye = f32(eye).to(dev)
+    eye = f32(eye, dev)
     W, H, N = spec.width, spec.height, spec.n_steps
     n_levels = len(mosaic.mip_shapes)
     lod = bool(spec.lod and n_levels)
@@ -676,7 +676,7 @@ def render_panorama(
     seed_x = px + eye[0] - pos_x
     seed_y = py + eye[1] - pos_y
 
-    sun = f32(sun_direction).to(dev)
+    sun = f32(sun_direction, dev)
     r, g, b = shd.shade_soa(n_x, n_y, n_z, sun, view_mode, seed_x, seed_y)
     sky = shd.SKY_COLOR
     channels = tuple(torch.where(hit, c, sc) for c, sc in zip((r, g, b), sky))
@@ -711,8 +711,8 @@ def render_batch_scan(mosaic, eyes, suns, spec: PanoramaSpec, view_mode=0, fog: 
     copy does not apply (`_window_batch`), each eye extracts its own.
     """
     dev = mosaic.device
-    eyes = f32(eyes).to(dev)
-    suns = f32(suns).to(dev)
+    eyes = f32(eyes, dev)
+    suns = f32(suns, dev)
     clip = bool(spec.lod and spec.clipmap and mosaic.mip_shapes)
     colors = torch.empty((eyes.shape[0], spec.height, spec.width, 3), dtype=torch.float32, device=dev)
     for b0 in range(0, eyes.shape[0], EYES_PER_LAUNCH):

@@ -1,12 +1,15 @@
-"""RenderEngine: the top-level rendering API (panorama paths).
+"""RenderEngine: the top-level rendering API.
 
 Port of the parts of `topo_renderer_tpu/render/engine.py` the panoramas
-use: the loaded tile set and per-tile peak lists (`render_engine.rs:34-44`),
-a mosaic rebuilt on the engine's device when tiles change,
-``render_panorama`` with its peak-label pass, and ``render_batch`` for many
-viewpoints without labels. The JAX package fuses render and label
-visibility into one jitted program; here they are two plain calls on the
-device, and only the packed visibility crosses to the host.
+and the fast perspective frame use: the loaded tile set and per-tile peak
+lists (`render_engine.rs:34-44`), a mosaic rebuilt on the engine's device
+when tiles change, ``render_panorama`` with its peak-label pass,
+``render_batch`` for many viewpoints without labels, and ``render(...,
+fast=True)``, the interactive frame, with its label pass and the
+one-transfer wire (`render/transport.py`). The JAX package fuses render,
+label visibility and wire encoding into one jitted program; here they are
+plain calls on the device, and at most one buffer per frame crosses to the
+host on its own: the packed visibility, or the wire vector.
 
 Peak arrays are padded to power-of-two capacities, as in the JAX package.
 """
@@ -14,6 +17,7 @@ Peak arrays are padded to power-of-two capacities, as in the JAX package.
 from __future__ import annotations
 
 import dataclasses
+import math
 import threading
 from collections import OrderedDict
 from typing import Sequence
@@ -28,16 +32,31 @@ from topo_renderer_tpu_torch.models.camera import Camera
 from topo_renderer_tpu_torch.models.scene import TerrainMosaic, TerrainTile, build_mosaic
 from topo_renderer_tpu_torch.models.uniforms import PeakInstance
 from topo_renderer_tpu_torch.ops import shading
-from topo_renderer_tpu_torch.ops.geometry import f32
-from topo_renderer_tpu_torch.ops.labels import peak_visibility_panorama
+from topo_renderer_tpu_torch.ops.geometry import f32, to_device
+from topo_renderer_tpu_torch.ops.labels import peak_visibility, peak_visibility_panorama
 from topo_renderer_tpu_torch.ops.panorama import (
     PanoramaSpec,
     extract_clipmap_windows,
     render_batch_scan,
     render_panorama,
 )
+from topo_renderer_tpu_torch.ops.raycast import render_perspective_fast
 from topo_renderer_tpu_torch.render import text as text_mod
+from topo_renderer_tpu_torch.render import transport
 from topo_renderer_tpu_torch.render.overlay import composite_labels
+
+_FOV_BUCKETS_DEG = (30.0, 45.0, 60.0, 90.0, 120.0, 160.0)
+_EXACT_QUALITIES = ("auto", "full", "interactive")
+
+
+def _fast_frame_labels(camera, out, pos, valid, *, width, height, tolerance_rel):
+    """Label visibility of a fast frame against its depth, on the frame's
+    device: packed ``i32[3, P]`` (visible, x, y)."""
+    vp = f32(camera.build_view_proj_matrix(float(width), float(height)), out["depth"].device)
+    vis = peak_visibility(
+        pos, valid, vp, out["depth"], width=width, height=height, tolerance_rel=tolerance_rel,
+    )
+    return torch.stack([vis["visible"].to(torch.int32), vis["x"], vis["y"]])
 
 
 def _panorama_with_labels(
@@ -67,6 +86,10 @@ class RenderResult:
     hit: object
     visible_labels: dict  # {GeoLocation: [(label_id, (x, y)), ...]}
     layouts: list  # [LabelLayout]
+    # Wire frames (`render(wire=...)`): ``color`` is the flat u8 wire vector
+    # on the device, and ``finish(buf)`` decodes the pulled buffer on the
+    # host -> (u8 frame, visible_labels, layouts, names). None otherwise.
+    finish: object = None
 
 
 class RenderEngine:
@@ -132,7 +155,7 @@ class RenderEngine:
         for j, (_, _, inst) in enumerate(entries):
             pos[j] = np.asarray(inst.position, np.float32)
             valid[j] = True
-        return entries, torch.from_numpy(pos).to(self.device), torch.from_numpy(valid).to(self.device)
+        return entries, f32(pos, self.device), to_device(torch.from_numpy(valid), self.device)
 
     def _label_pass_packed(self, entries, packed):
         """Packed visibility -> per-tile label lists + greedy row layout,
@@ -160,6 +183,122 @@ class RenderEngine:
                 memo.popitem(last=False)
             return visible_labels, layouts
 
+    def _make_finish(self, entries, names, height, width, mode, n_peaks):
+        """Host half of a wire frame: decode the pulled buffer and run the
+        memoized label pass. ``names`` is taken at render time, so peak
+        changes between render and finish do not skew the labels."""
+
+        def finish(buf):
+            img, lab = transport.decode_frame(np.asarray(buf), height, width, n_peaks, mode=mode)
+            if lab is None:
+                return img, {}, [], {}
+            visible_labels, layouts = self._label_pass_packed(entries, lab)
+            return img, visible_labels, layouts, names
+
+        return finish
+
+    @staticmethod
+    def _fov_bucket_rad(camera) -> float:
+        """The smallest fov bucket at or above the camera's fov: the fast
+        frame's window is sized from it, so a fov change within a bucket
+        keeps the window's shapes."""
+        fov = math.degrees(float(camera.fov_y))
+        bucket = next((b for b in _FOV_BUCKETS_DEG if b >= fov - 1e-6), _FOV_BUCKETS_DEG[-1])
+        return math.radians(bucket)
+
+    # ---- perspective frames ---------------------------------------------
+
+    def render(
+        self,
+        camera: Camera,
+        width: int,
+        height: int,
+        *,
+        n_steps: int = 1024,
+        n_refine: int = 24,
+        pixelize_n=None,
+        with_labels: bool = True,
+        composite: bool = True,
+        fast: bool = False,
+        guided: bool = True,
+        host_copy: bool = True,
+        u8_host: bool = True,
+        wire: str | None = None,
+        guided_kw: tuple = (),
+        exact_quality: str = "auto",
+    ) -> RenderResult:
+        """One perspective frame with the peak-label pass.
+
+        ``fast=True`` renders through the LOD panorama engine and warps to
+        the perspective grid (`render_perspective_fast`, ``n_steps`` capped
+        at 512). ``fast=False`` is the triangle-exact path, which with
+        ``n_refine``, ``guided``, ``guided_kw`` and ``exact_quality``
+        belongs to a later slice of the port (ROADMAP.md slice 3) and
+        raises NotImplementedError.
+
+        ``host_copy=False`` leaves ``color_linear``, ``depth``, ``distance``
+        and ``hit`` on the device; ``u8_host=False`` leaves the u8 frame
+        there too and skips compositing. ``wire`` (a `render/transport.py`
+        mode) makes ``color`` the flat u8 wire vector on the device, pixels
+        and label bytes together: the caller pulls it and calls
+        ``finish(buf)`` -> ``(u8 frame, visible_labels, layouts, names)``.
+        """
+        if wire is not None and wire not in transport.MODES:
+            raise ValueError(f"unknown wire mode {wire!r}")
+        if exact_quality not in _EXACT_QUALITIES:
+            raise ValueError(f"unknown exact_quality {exact_quality!r}")
+        if not fast:
+            raise NotImplementedError("the triangle-exact frame (fast=False): ROADMAP.md slice 3")
+        out = render_perspective_fast(
+            self.mosaic, camera, width=width, height=height, n_steps=min(n_steps, 512),
+            pixelize_n=pixelize_n, fov_hint=self._fov_bucket_rad(camera),
+        )
+        entries, packed = [], None
+        if with_labels and self._peaks:
+            entries, pos, valid = self._padded_peaks()
+            # LOD depth carries a distance-proportional error; the
+            # reference's absolute 10 m applies to the exact path.
+            packed = _fast_frame_labels(camera, out, pos, valid, width=width, height=height, tolerance_rel=0.05)
+        if wire is not None:
+            names = {(loc, i): self._peaks[loc][i].name for (loc, i, _) in entries}
+            n_peaks = 0 if packed is None else int(packed.shape[1])
+            return self._result(
+                out, transport.encode_frame(out["color"], packed, mode=wire), {}, [], host_copy=host_copy,
+                finish=self._make_finish(entries, names, height, width, wire, n_peaks),
+            )
+        visible_labels: dict[GeoLocation, list] = {}
+        layouts: list = []
+        if packed is not None:
+            visible_labels, layouts = self._label_pass_packed(entries, packed.cpu().numpy())
+        return self._finalize_plain(
+            out, visible_labels, layouts, composite=composite, host_copy=host_copy, u8_host=u8_host
+        )
+
+    def _finalize_plain(self, out, visible_labels, layouts, *, composite, host_copy, u8_host):
+        """Non-wire tail of a frame or panorama: the u8 sRGB frame, label
+        compositing and the RenderResult."""
+        color_u8 = shading.to_srgb8_image(out["color"])
+        if u8_host:
+            color_u8 = color_u8.cpu().numpy()
+            if composite and layouts:
+                names = {(loc, i): self._peaks[loc][i].name for loc in visible_labels for i, _ in visible_labels[loc]}
+                color_u8 = composite_labels(color_u8, layouts, names)
+        return self._result(out, color_u8, visible_labels, layouts, host_copy=host_copy)
+
+    @staticmethod
+    def _result(out, color, visible_labels, layouts, *, host_copy, finish=None):
+        cp = (lambda a: a.cpu().numpy()) if host_copy else (lambda a: a)
+        return RenderResult(
+            color=color,
+            color_linear=cp(out["color"]),
+            depth=cp(out["depth"]),
+            distance=cp(out["distance"]),
+            hit=cp(out["hit"]),
+            visible_labels=visible_labels,
+            layouts=layouts,
+            finish=finish,
+        )
+
     # ---- panorama --------------------------------------------------------
 
     def render_panorama(
@@ -185,8 +324,8 @@ class RenderEngine:
             eye = camera_or_eye
             if sun_direction is None:
                 raise ValueError("sun_direction required when passing a raw eye")
-        eye = f32(eye).to(self.device)
-        sun = f32(sun_direction).to(self.device)
+        eye = f32(eye, self.device)
+        sun = f32(sun_direction, self.device)
         mosaic = self.mosaic
 
         windows = None
@@ -209,24 +348,8 @@ class RenderEngine:
                 fog=fog, pixelize_n=pixelize_n, windows=windows,
             )
 
-        cp = (lambda a: a.cpu().numpy()) if host_copy else (lambda a: a)
-        color_u8 = shading.to_srgb8_image(out["color"]).cpu().numpy()
-        if composite and layouts:
-            names = {
-                (loc, i): self._peaks[loc][i].name
-                for loc in visible_labels
-                for i, _ in visible_labels[loc]
-            }
-            color_u8 = composite_labels(color_u8, layouts, names)
-
-        return RenderResult(
-            color=color_u8,
-            color_linear=cp(out["color"]),
-            depth=cp(out["depth"]),
-            distance=cp(out["distance"]),
-            hit=cp(out["hit"]),
-            visible_labels=visible_labels,
-            layouts=layouts,
+        return self._finalize_plain(
+            out, visible_labels, layouts, composite=composite, host_copy=host_copy, u8_host=True
         )
 
     def render_batch(self, eyes, spec: PanoramaSpec, sun_directions, view_mode=0, fog=None):
@@ -240,8 +363,8 @@ class RenderEngine:
         (``use_pallas=False``), as the JAX package's vmapped fallback forces
         it (`engine.py:1173-1182`).
         """
-        eyes = f32(eyes).to(self.device)
-        suns = f32(sun_directions).to(self.device)
+        eyes = f32(eyes, self.device)
+        suns = f32(sun_directions, self.device)
         if spec.lod and spec.clipmap:
             return render_batch_scan(self.mosaic, eyes, suns, spec, view_mode=view_mode, fog=fog)
         vspec = dataclasses.replace(spec, use_pallas=False)
