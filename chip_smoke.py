@@ -9,13 +9,15 @@ Phases (any failure exits non-zero):
   2. build every CUDA kernel of the port from ``topo_renderer_tpu_torch/csrc``
      (one nvcc per source, all started together);
   3. hold each kernel against its plain PyTorch version on the card at the
-     shapes the panoramas and the fast frame give it: K1 (crossing search), K2/K4 (window
-     copies) and K3 (the batched window copy, 256 viewpoints) must agree
-     exactly, bit for bit. K1 also at the fast frame's shape (N 512, W 768,
-     H 1056; level and with rows past -pi/2), on ties, N = 509 (not a
-     multiple of its chunk), crossings and NaNs at chunk edges, shuffled rows
-     at the batch shape and an unaligned profile; K2 also on two table sets
-     in turn;
+     shapes the panoramas and the perspective frames give it: K1 (crossing
+     search), K2/K4 (window copies) and K3 (the batched window copy, 256
+     viewpoints) must agree exactly, bit for bit. K1 also at the fast
+     frame's shape (N 512, W 768, H 1056; level and with rows past -pi/2),
+     at the exact frame's prepass shape (N 896, W 1152, H 840, zero
+     payloads; exact and bound profiles, level and 1.1 rad down), on ties,
+     N = 509 (not a multiple of its chunk), crossings and NaNs at chunk
+     edges, shuffled rows at the batch shape and an unaligned profile; K2
+     also on two table sets in turn;
   4. drive the engine on 100 COP-90-shaped tiles (10 x 10 tiles of 1201^2
      texels at 3", a 12001^2 mosaic) and ~256 peaks:
      a. three 4096 x 1024 atmospheric LOD panoramas of 512 steps with
@@ -39,10 +41,21 @@ Phases (any failure exits non-zero):
         device busy share;
      e. config 3: the same frame with the label pass, its bytes in the same
         wire vector; at least one label is visible and ``finish``'s labels
-        equal those of the frame rendered without the wire.
+        equal those of the frame rendered without the wire;
+     f. config 1: the triangle-exact 800 x 450 frame (`render(...,
+        n_steps=1024, n_refine=24, fast=False)`, the guided march), 10
+        settle frames (``exact_quality="full"``) and 10 motion frames
+        ("interactive"), each with the u8 pull, then one labelled frame
+        through the yuv420 wire; every frame launches K1 twice (the
+        prepass's profiles) and K2/K3 never, hits terrain and sky and has >
+        200 colours. Per rung the host syncs inside a frame (must be 0) and
+        the device-only ms by CUDA-graph replay; the settle frame's device
+        busy share.
      Small scenes rendered on the card and on the CPU (plain versions) must
-     agree, for the fast preset, the fallback's spec and the fast frame
-     (level, 1.1 rad down and across azimuth ±pi);
+     agree, for the fast preset, the fallback's spec, the fast frame
+     (level, 1.1 rad down and across azimuth ±pi) and the exact frame at
+     320 x 180 (guided and unguided; the unguided two-level frame's host
+     syncs are printed);
   5. each kernel's own device time with torch.profiler, after the paths'
      timings so that no profiler has run before them, and the ``kernels``
      JSON line. Per-call times (CUDA events) come from phases 3 and 4.
@@ -178,7 +191,7 @@ def device_times(kernels) -> None:
         for where, fn, iters in k.pop("device_fns"):
             (k[where] if where else k)["device_ms"] = device_ms(fn, iters)
         extra = "".join(f", {where.replace('_', ' ')} {k[where]['device_ms']:.4f} ms"
-                        for where in ("batch_shape", "fast_shape") if where in k)
+                        for where in ("batch_shape", "fast_shape", "prepass_shape") if where in k)
         log(f"{k['name']}: {k['device_ms']:.4f} ms on the device per launch{extra}")
 
 
@@ -361,15 +374,66 @@ def check_crossing():
     log(f"K1 crossing_search: exact on N={ef.shape[0]} W={ef.shape[1]} H={tf.shape[0]} (the 800x450 fast "
         f"frame's shape), level and 1.1 rad down (rows past -pi/2); {fast_shape['ms']:.4f} ms per call "
         f"(plain {fast_shape['plain_ms']:.3f} ms, bound {fast_shape['bound_ms']:.5f} ms)")
+    profiles, z, rows = prepass_crossing_inputs()
+    for (pname, prof), (rname, thr) in ((p, r) for p in profiles.items() for r in rows.items()):
+        if not all(torch.equal(g, w) for g, w in zip(K.crossing_search(prof, z, z, z, thr),
+                                                     K.crossing_search_plain(prof, z, z, z, thr))):
+            raise AssertionError(f"K1 differs from the plain version at the prepass shape ({pname}, {rname})")
+    ep, tp = profiles["exact profile"], rows["level"]
+    full_bytes = 4 * (4 * ep.numel() + tp.numel()) + 6 * 4 * tp.shape[0] * ep.shape[1]
+    prepass_shape = dict(
+        shape=list(ep.shape) + [tp.shape[0]],
+        ms=cuda_ms(lambda: K.crossing_search(ep, z, z, z, tp), iters=200, warmup=3),
+        plain_ms=cuda_ms(lambda: K.crossing_search_plain(ep, z, z, z, tp), iters=3),
+        bound_ms=1e3 * crossing_bytes(ep, K.crossing_search_plain(ep, z, z, z, tp)[0]) / HBM_BYTES_PER_S,
+        bound_all_read_ms=1e3 * full_bytes / HBM_BYTES_PER_S,
+    )
+    log(f"K1 crossing_search: exact on N={ep.shape[0]} W={ep.shape[1]} H={tp.shape[0]} (the 800x450 exact "
+        f"frame's prepass shape, zero payloads), exact and bound profiles, level and 1.1 rad down; "
+        f"{prepass_shape['ms']:.4f} ms per call (plain {prepass_shape['plain_ms']:.3f} ms, bound "
+        f"{prepass_shape['bound_ms']:.5f} ms for the bytes this data needs, {prepass_shape['bound_all_read_ms']:.5f} "
+        f"ms reading every input)")
     return dict(
         name="crossing_search", route="cuda", source="topo_renderer_tpu_torch/csrc/crossing.cu",
         replaces="topo_renderer_tpu/ops/pallas_crossing.py:124", max_abs_err=err, ms=ms,
         plain_ms=plain_ms, bound_ms=1e3 * nbytes / HBM_BYTES_PER_S, bound_by="bytes", library_ms=None,
-        batch_shape=batch_shape, fast_shape=fast_shape,
+        batch_shape=batch_shape, fast_shape=fast_shape, prepass_shape=prepass_shape,
         device_fns=[(None, lambda: K.crossing_search(e, a0, a1, a2, t), 50),
                     ("batch_shape", lambda: K.crossing_search(eb, b0, b1, b2, tb), 200),
-                    ("fast_shape", lambda: K.crossing_search(ef, f0, f1, f2, tf), 200)],
+                    ("fast_shape", lambda: K.crossing_search(ef, f0, f1, f2, tf), 200),
+                    ("prepass_shape", lambda: K.crossing_search(ep, z, z, z, tp), 200)],
     )
+
+
+def prepass_crossing_inputs():
+    """K1's inputs at the 800 x 450 exact frame's prepass shape
+    (`guided_prepass_spec` at the 45 degree fov bucket: N 896, W 1152, H
+    840) with zero payloads, as `panorama_crossing_prepass` calls it: an
+    exact profile, and a bound profile above it with NEG rows where the near
+    segments skip the bound (the plan of the 12001^2 mosaic's pyramid) and
+    columns that leave the mosaic (all NEG); the rows' tan(elevation) of a
+    level view and of a view 1.1 rad down, whose lowest rows pass -pi/2."""
+    import math
+    import types
+
+    import torch
+
+    from topo_renderer_tpu_torch.models.scene import _mip_shapes
+    from topo_renderer_tpu_torch.ops.panorama import NEG_RATIO, _prepass_bound_plan
+    from topo_renderer_tpu_torch.ops.raycast import guided_prepass_spec
+
+    spec, half_win, _ = guided_prepass_spec(height=FAST_H, fov_hint=math.radians(45.0), aspect=FAST_W / FAST_H,
+                                            n_steps=1024)
+    e, _, _, _, t = crossing_inputs(n=spec.n_steps, ws=spec.width, h=spec.height, half=half_win)
+    mosaic = types.SimpleNamespace(mip_shapes=_mip_shapes(12001, 12001), texel_m=92.6)
+    levels, src = _prepass_bound_plan(spec, mosaic, 64, 4)
+    near = torch.from_numpy(src == sum(len(r) for r in levels.values())).to(e.device)
+    rng = np.random.default_rng(SEED + 8)
+    bound = e + torch.from_numpy(rng.uniform(0.0, 0.05, e.shape).astype(np.float32)).to(e.device)
+    bound[near] = NEG_RATIO
+    bound[:, torch.from_numpy(rng.random(e.shape[1]) < 0.05).to(e.device)] = NEG_RATIO
+    steep = torch.from_numpy(row_thresholds(spec.height, half_win, centre=-1.1)).to(t.device)
+    return {"exact profile": e, "bound profile": bound}, torch.zeros_like(e), {"level": t, "1.1 rad down": steep}
 
 
 def fast_frame_crossing_inputs():
@@ -992,13 +1056,13 @@ def label_pass_steps(engine, cam, reps=20):
     res, _ = wire_frame(engine, cam, True)
     bare, _ = wire_frame(engine, cam, False)
     _, pos, valid = engine._padded_peaks()
-    packed = engine_mod._fast_frame_labels(cam, {"depth": res.depth}, pos, valid, width=FAST_W, height=FAST_H,
-                                           tolerance_rel=0.05)
+    packed = engine_mod._frame_labels(cam, {"depth": res.depth}, pos, valid, width=FAST_W, height=FAST_H,
+                                      tolerance_rel=0.05)
     buf, bare_buf = res.color.cpu().numpy(), bare.color.cpu().numpy()
     steps = {
         "padded peak arrays": engine._padded_peaks,
         "view-projection on the host": lambda: cam.build_view_proj_matrix(float(FAST_W), float(FAST_H)),
-        "visibility pass, queued": lambda: engine_mod._fast_frame_labels(
+        "visibility pass, queued": lambda: engine_mod._frame_labels(
             cam, {"depth": res.depth}, pos, valid, width=FAST_W, height=FAST_H, tolerance_rel=0.05),
         "label bytes, queued": lambda: transport.encode_labels_u8(packed),
         "finish with labels": lambda: res.finish(buf),
@@ -1006,6 +1070,83 @@ def label_pass_steps(engine, cam, reps=20):
     }
     log("label pass steps (host ms, median of %d): %s" % (
         reps, ", ".join(f"{name} {host_ms(fn):.3f}" for name, fn in steps.items())))
+
+
+# ---- phase 4f: the triangle-exact frame (config 1) ----------------------------
+
+EXACT_KW = dict(n_steps=1024, n_refine=24, fast=False)
+
+
+def exact_frame(engine, cam, quality, **kw):
+    """One 800 x 450 exact frame (config 1) on the engine's default guided
+    march at ``quality`` ("full": the settle budget, "interactive": the
+    motion rung), without labels unless ``kw`` asks for them."""
+    kw = {"with_labels": False, "host_copy": False, **kw}
+    return engine.render(cam, FAST_W, FAST_H, exact_quality=quality, **EXACT_KW, **kw)
+
+
+def exact_frame_path(engine, cam, frames=10):
+    """Phase 4f, config 1: ``frames`` settle and ``frames`` motion frames,
+    each with the u8 frame pulled to the host, then one labelled frame
+    through the yuv420 wire. Every frame launches K1 twice (the prepass's
+    exact and bound profiles) and K2/K3 never, hits terrain and sky and has
+    > 200 colours. Then, per rung, the host syncs inside a frame (0), the
+    device-only ms by CUDA-graph replay, and the settle frame's device busy
+    share. Returns the launch counts of one frame per rung, the per-frame
+    host-clock ms per rung, the device-only ms per rung and the profile."""
+    import torch
+
+    counts, host_ms, last = {}, {"full": [], "interactive": []}, {}
+    for quality in host_ms:
+        exact_frame(engine, cam, quality)  # allocator warm-up
+    torch.cuda.synchronize()
+    # The rungs in turns, so that both see the same host.
+    for i in range(frames):
+        for quality in host_ms:
+            reset_counts()
+            t0 = time.perf_counter()
+            last[quality] = exact_frame(engine, cam, quality)
+            host_ms[quality].append(1e3 * (time.perf_counter() - t0))
+            counts[quality] = read_counts()
+            expect_counts(f"exact frame ({quality}) {i}", counts[quality], {
+                "crossing_search": 2, "window_slice_multi": 0, "window_slice_multi_batched": 0, "window_slice": 0})
+    for quality, res in last.items():
+        hit = float(res.hit.float().mean())
+        colours = len(np.unique(res.color.reshape(-1, 3), axis=0))
+        if res.color.shape != (FAST_H, FAST_W, 3) or not bool(torch.isfinite(res.color_linear).all()):
+            raise AssertionError(f"exact frame ({quality}): bad output")
+        if not 0.0 < hit < 1.0 or colours <= 200:
+            raise AssertionError(f"exact frame ({quality}): hit {hit:.3f}, {colours} colours")
+        log(f"exact frame (config 1, {quality}): {FAST_W}x{FAST_H}, 1024 steps (prepass 896), n_refine 24, "
+            f"{frames} frames with the u8 pull, host clock: {ms_stats(host_ms[quality])}; hit {hit:.3f}, "
+            f"{colours} colours")
+
+    reset_counts()
+    res = exact_frame(engine, cam, "full", with_labels=True, wire="yuv420")
+    _, labels, layouts, _ = res.finish(res.color.cpu().numpy())
+    expect_counts("labelled exact frame", read_counts(), {"crossing_search": 2, "window_slice_multi": 0,
+                                                          "window_slice_multi_batched": 0})
+    plain = exact_frame(engine, cam, "full", with_labels=True, composite=False)
+    if labels != plain.visible_labels:
+        raise AssertionError("labelled exact frame: the wire's labels differ from the frame's without the wire")
+    log(f"labelled exact frame (yuv420 wire): {sum(len(v) for v in labels.values())} labels visible "
+        f"({len(layouts)} laid out), equal to the frame without the wire")
+
+    dev_ms = {}
+    profiled = frame_profile(lambda: exact_frame(engine, cam, "full", u8_host=False))
+    for quality in ("full", "interactive"):
+        def frame():
+            exact_frame(engine, cam, quality, u8_host=False)
+
+        syncs = host_syncs(frame)
+        if syncs:
+            raise AssertionError(f"exact frame ({quality}): {len(syncs)} host syncs inside a frame at {syncs[:8]}")
+        dev_ms[quality], why = graph_ms(frame)
+        if why is not None:
+            raise AssertionError(f"exact frame ({quality}): no CUDA graph capture ({why})")
+        log(f"exact frame ({quality}): host syncs inside a frame: 0; device only (CUDA graph of the frame "
+            f"without the pull, 20 replays back to back, CUDA events): {dev_ms[quality]:.3f} ms")
+    return counts, host_ms, dev_ms, profiled
 
 
 def small_scene_agreement():
@@ -1038,18 +1179,27 @@ def small_scene_agreement():
         log(f"small scene {name}: card vs CPU hit agreement {hit_agree:.4f}, max depth diff {rel:.2e}, "
             f"labels {n_g} / {n_c}")
     # The fast frame: level, 1.1 rad down (window rows past -pi/2), and a
-    # window across azimuth ±pi.
-    poses = {"fast frame": cam, "fast frame 1.1 rad down": dataclasses.replace(cam, pitch=1.1),
-             "fast frame across ±pi": dataclasses.replace(cam, yaw=yaw_toward(cam, math.pi - 0.2))}
-    for name, pose in poses.items():
-        g, c = (engines[dev].render(pose, 320, 180, n_steps=256, fast=True, composite=False)
-                for dev in ("cuda", "cpu"))
-        # Distance, relative to itself. Where a pixel's four window texels
-        # include sky, the blend carries FAR (500 km) into its distance, so a
-        # last bit of the blend weight moves that pixel by up to a percent
-        # (7.8e-3 on the level frame); elsewhere the readings are ~5e-5. The
-        # p99 and the share above 2e-3 catch a warp that moves distances;
-        # the max bounds the skyline's pixels.
+    # window across azimuth ±pi; the exact frame, guided and unguided.
+    fast_kw = dict(n_steps=256, fast=True)
+    exact_kw = dict(n_steps=512, n_refine=16, fast=False, exact_quality="full")
+    poses = {"fast frame": (cam, fast_kw),
+             "fast frame 1.1 rad down": (dataclasses.replace(cam, pitch=1.1), fast_kw),
+             "fast frame across ±pi": (dataclasses.replace(cam, yaw=yaw_toward(cam, math.pi - 0.2)), fast_kw),
+             "exact frame guided": (cam, exact_kw),
+             "exact frame unguided": (cam, dict(exact_kw, guided=False))}
+    syncs = host_syncs(lambda: engines["cuda"].render(cam, 320, 180, composite=False,
+                                                      **poses["exact frame unguided"][1]))
+    log(f"small scene exact frame unguided (two-level march, 512 steps) at 320x180: {len(syncs)} host syncs "
+        f"inside a frame (its loop condition, read once every 4 rounds)")
+    for name, (pose, kw) in poses.items():
+        g, c = (engines[dev].render(pose, 320, 180, composite=False, **kw) for dev in ("cuda", "cpu"))
+        # Distance, relative to itself. Where a fast-frame pixel's four window
+        # texels include sky, the blend carries FAR (500 km) into its
+        # distance, so a last bit of the blend weight moves that pixel by up
+        # to a percent (7.8e-3 on the level frame); an exact-frame pixel at a
+        # depth edge moves as far (1.5e-2). Elsewhere the readings are ~5e-5.
+        # The p99 and the share above 2e-3 catch a march or warp that moves
+        # distances; the max bounds the skyline's pixels.
         hit_agree = float((g.hit == c.hit).mean())
         both = g.hit & c.hit
         ddepth = float(np.abs(g.depth - c.depth)[both].max()) if both.any() else 0.0
@@ -1117,7 +1267,8 @@ def main(argv) -> int:
     k3 = check_window_slice_batched()
     torch.cuda.empty_cache()
     order = ("name", "route", "source", "replaces", "launches", "max_abs_err", "ms", "device_ms", "plain_ms",
-             "bound_ms", "bound_by", "library_ms", "launches_per_call", "batch_shape", "fast_shape")
+             "bound_ms", "bound_by", "library_ms", "launches_per_call", "batch_shape", "fast_shape",
+             "prepass_shape")
     kernels = [k1, k2, k3, k4]
     if kernels_only:
         device_times(kernels)
@@ -1133,6 +1284,8 @@ def main(argv) -> int:
     cam = fast_camera(engine, centre)
     per_call["fast_frame"], fast_ms, fast_dev_ms, fast_profile = fast_frame_path(engine, cam)
     per_call["fast_frame_labels"], labelled_ms, label_ms = labelled_fast_frame_path(engine, cam)
+    exact_counts, exact_ms, exact_dev_ms, exact_profile = exact_frame_path(engine, cam)
+    per_call["exact_frame"], per_call["exact_frame_interactive"] = exact_counts["full"], exact_counts["interactive"]
     del engine
     torch.cuda.empty_cache()
     device_times(kernels)
@@ -1155,6 +1308,14 @@ def main(argv) -> int:
         f"device only {'not measured' if fast_dev_ms is None else f'{fast_dev_ms:.3f} ms'} (CUDA events), "
         f"{busy}; with labels (config 3): median "
         f"{np.median(labelled_ms):.2f} ms, label overhead {label_ms:.2f} ms (frames in turn)")
+    exact_busy = (f"device busy {exact_profile[1]:.2f} of {exact_profile[0]:.2f} ms "
+                  f"({100 * exact_profile[1] / exact_profile[0]:.1f}%)" if exact_profile else "device busy not measured")
+    log(f"exact frame (config 1): median {np.median(exact_ms['full']):.2f} ms host clock incl. the u8 pull at the "
+        f"full budget, {np.median(exact_ms['interactive']):.2f} ms on the interactive rung; device only "
+        f"{exact_dev_ms['full']:.3f} / {exact_dev_ms['interactive']:.3f} ms (CUDA graph replay); host syncs inside "
+        f"a frame 0; {exact_busy}; K1 {per_call['exact_frame']['crossing_search']} launches per frame; K1 at the "
+        f"prepass shape {k1['prepass_shape']['ms']:.4f} ms per call, {k1['prepass_shape']['device_ms']:.4f} ms "
+        f"on the device, bound {k1['prepass_shape']['bound_ms']:.5f} ms")
     print(json.dumps({"kernels": [{key: k[key] for key in order if key in k} for k in kernels]}),
           flush=True)
     print(card, flush=True)

@@ -39,6 +39,8 @@ def test_no_forbidden_module_after_import():
         "for m in pkgutil.walk_packages(p.__path__, p.__name__ + '.'):\n"
         "    importlib.import_module(m.name)\n"
         "import chip_smoke\n"
+        "from topo_renderer_tpu_torch.ops.raycast import march_guided_panorama, render_perspective\n"
+        "from topo_renderer_tpu_torch.ops.panorama import panorama_crossing_prepass\n"
         f"bad = sorted(m for m in sys.modules if m.split('.')[0] in {sorted(FORBIDDEN)!r})\n"
         "print(len(sys.modules), bad)\n"
     )
@@ -91,15 +93,20 @@ def _cpu_engine():
 
 
 def test_cpu_fast_frame_launches_no_kernel_and_exact_frame_raises():
+    """Fast and exact frames on the CPU launch no kernel; the exact march's
+    rungs without guard legs are not ported and raise."""
     engine, cam = _cpu_engine()
-    with pytest.raises(NotImplementedError, match="slice 3"):
-        engine.render(cam, 32, 24)
+    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
+        engine.render(cam, 32, 24, n_steps=64, guided_kw=(("guard_legs", False),))
     with pytest.raises(ValueError, match="exact_quality"):
         engine.render(cam, 32, 24, fast=True, exact_quality="best")
     res = engine.render(cam, 48, 32, n_steps=64, fast=True, wire="yuv420", host_copy=False)
     frame, labels, _, _ = res.finish(res.color.numpy())
     assert frame.shape == (32, 48, 3) and labels == {}
     assert res.depth.device.type == "cpu"
+    for guided in (True, False):
+        res = engine.render(cam, 48, 32, n_steps=384, n_refine=4, guided=guided, wire="yuv420", host_copy=False)
+        assert res.finish(res.color.numpy())[0].shape == (32, 48, 3) and res.hit.any()
     assert [f.launches for f in COUNTERS] == [0, 0, 0, 0]
 
 

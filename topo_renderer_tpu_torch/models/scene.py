@@ -68,12 +68,16 @@ class TerrainTile:
 
 
 class MosaicHostData:
-    """Host bookkeeping (valid mask, cell ownership, tile rotations)."""
+    """Host bookkeeping (valid mask, cell ownership, tile rotations) and host
+    copies of ``model_point`` and ``pixel_scale`` (f32[2]), so that per-frame
+    host arithmetic never reads them back from the device."""
 
-    def __init__(self, valid, cell_tile, tile_rot):
+    def __init__(self, valid, cell_tile, tile_rot, model_point, pixel_scale):
         self.valid = valid
         self.cell_tile = cell_tile
         self.tile_rot = tile_rot
+        self.model_point = np.array(model_point, np.float32)
+        self.pixel_scale = np.array(pixel_scale, np.float32)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -412,6 +416,8 @@ def build_mosaic(
     def dev(a, dtype=None):
         return torch.as_tensor(a, dtype=dtype).to(device)
 
+    model_point = np.array([lon_nw, lat_nw], np.float32)
+    pixel_scale = np.array([abs(ps_x), abs(ps_y)], np.float32)
     arrs = _device_mosaic_tables(
         dev(heights),
         dev(valid),
@@ -434,9 +440,9 @@ def build_mosaic(
         mip_hmax_flat=arrs["mip_hmax"],
         mip_shapes=_mip_shapes(h_m, w_m),
         win_attr_2d=arrs["win_attr_2d"],
-        host=MosaicHostData(valid=valid, cell_tile=cell_tile, tile_rot=rotations),
-        model_point=dev(np.array([lon_nw, lat_nw], np.float32)),
-        pixel_scale=dev(np.array([abs(ps_x), abs(ps_y)], np.float32)),
+        host=MosaicHostData(valid, cell_tile, rotations, model_point, pixel_scale),
+        model_point=dev(model_point),
+        pixel_scale=dev(pixel_scale),
         hmax=dev(np.float32(hmax)),
         bound_center=dev(np.asarray(center, np.float32)),
         bound_radius=dev(np.float32(radius)),
@@ -467,6 +473,6 @@ def mosaic_from_arrays(
         has_cell_table=t["cell_heights_flat"].shape[0] > 1,
         shape=tuple(shape),
         mip_shapes=tuple(tuple(s) for s in mip_shapes),
-        host=MosaicHostData(valid=None, cell_tile=None, tile_rot=None),
+        host=MosaicHostData(None, None, None, arrays["model_point"], arrays["pixel_scale"]),
         texel_m=float(texel_m),
     )

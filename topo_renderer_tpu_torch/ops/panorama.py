@@ -20,6 +20,11 @@ column needs:
 
 `render_batch_scan` renders B viewpoints: one K3 launch extracts every
 eye's windows, then each eye renders from its own windows.
+
+`panorama_crossing_prepass` renders no pixels: it gives the exact frame's
+guided march (`ops/raycast.py::march_guided_panorama`) per-texel crossing
+brackets from the triangle-exact and the dilated-bound profiles, with one
+K1 launch each.
 """
 
 from __future__ import annotations
@@ -32,7 +37,7 @@ import torch
 from topo_renderer_tpu_torch.models.camera import FAR, NEAR, depth_from_dist
 from topo_renderer_tpu_torch.ops import shading as shd
 from topo_renderer_tpu_torch.ops.crossing import crossing_reductions, crossing_search
-from topo_renderer_tpu_torch.ops.geometry import R0, degrees, f32
+from topo_renderer_tpu_torch.ops.geometry import R0, degrees, f32, to_device
 from topo_renderer_tpu_torch.ops.mathx import norm
 from topo_renderer_tpu_torch.ops.postprocess import (
     atmospheric_shading_soa,
@@ -49,6 +54,7 @@ from topo_renderer_tpu_torch.ops.surface import (
 )
 from topo_renderer_tpu_torch.ops.window_slice import window_slice_multi, window_slice_multi_batched
 
+NEG_RATIO = -1.0e30  # profile samples outside the mosaic
 # Viewpoints per K3 launch in `render_batch_scan`: at config 5 (four
 # 2 x 272 x 512 windows per eye) 256 eyes hold 1.14 GB of windows.
 EYES_PER_LAUNCH = 256
@@ -144,6 +150,21 @@ def _texel_m(spec: PanoramaSpec, mosaic) -> float:
     if spec.lod_texel_m is not None:
         return float(spec.lod_texel_m)
     return float(getattr(mosaic, "texel_m", 92.6))
+
+
+def _log_schedule(spec: PanoramaSpec, dev):
+    """``sigma_of(kf)``: the ground angle of profile step ``kf`` on the log
+    schedule from ``s_near`` to ``s_far``. Scalar-precision trap: its
+    constants are float32 logs (`panorama.py:472-476`), not Python
+    (float64) ones."""
+    log_near = torch.log(f32(spec.s_near, dev))
+    log_ratio = torch.log(f32(spec.s_far / spec.s_near, dev))
+    n = spec.n_steps
+
+    def sigma_of(kf):
+        return torch.exp(log_near + log_ratio * (kf / (n - 1))) / R0
+
+    return sigma_of
 
 
 def _lod_segments(spec: PanoramaSpec, n_levels: int, texel_m: float):
@@ -569,14 +590,7 @@ def render_panorama(
     hy = (ny0 * cphi + ey * sphi)[None, :]
     hz = (nz0 * cphi)[None, :]
 
-    # Scalar-precision trap: the schedule constants are float32 logs
-    # (`panorama.py:472-476`), not Python (float64) ones.
-    log_near = torch.log(f32(spec.s_near, dev))
-    log_ratio = torch.log(f32(spec.s_far / spec.s_near, dev))
-
-    def sigma_of(kf):
-        return torch.exp(log_near + log_ratio * (kf / (N - 1))) / R0
-
+    sigma_of = _log_schedule(spec, dev)
     sigma = sigma_of(torch.arange(N, dtype=torch.float32, device=dev)[:, None])  # [N, 1]
 
     st = max(1, int(spec.profile_stride))
@@ -697,6 +711,232 @@ def render_panorama(
     else:
         out["color"] = torch.stack(channels, dim=-1)
     return out
+
+
+def _prepass_bound_plan(spec: PanoramaSpec, mosaic, seg: int, bound_stride: int):
+    """Static plan of the prepass's bound profile, on the host from shapes
+    alone: ``(levels, src)``. ``levels`` maps each pyramid level to the
+    profile steps sampled from it; ``src`` gives each step its sampled
+    row's position in those levels' concatenated samples (in ``levels``'
+    order), or that count (a row of NEG) in near segments.
+
+    Segments whose last step is closer than 32 texels skip the bound (the
+    exact profile samples every triangle piece there). A segment samples
+    every ``bound_stride``-th step at the level whose dilation covers the
+    step gap plus log2(stride) more, and each step repeats its group's
+    first sample: the elevation ratio of a fixed height falls with
+    distance, so the repeat bounds every step of the group.
+    """
+    n = spec.n_steps
+    n_levels = len(mosaic.mip_shapes)
+    texel = _texel_m(spec, mosaic)
+    s = spec.s_near * (spec.s_far / spec.s_near) ** (np.arange(n) / (n - 1))
+    ds = s * (np.log(spec.s_far / spec.s_near) / (n - 1))
+    lvl = np.clip(np.ceil(np.log2(np.maximum(ds / texel, 1.0))), 1, max(n_levels, 1)).astype(int)
+    levels: dict[int, list] = {}
+    step_sample = np.full(n, -1)
+    step_level = np.zeros(n, int)
+    for k0 in range(0, n, seg):
+        k1 = min(k0 + seg, n)
+        if s[k1 - 1] < 32.0 * texel:
+            continue
+        lv = min(int(lvl[k0:k1].max()) + (bound_stride - 1).bit_length(), n_levels)
+        rows = levels.setdefault(lv, [])
+        for k in range(k0, k1):
+            if (k - k0) % bound_stride == 0:
+                rows.append(k)
+            step_sample[k], step_level[k] = len(rows) - 1, lv
+    base, total = {}, 0
+    for lv, rows in levels.items():
+        base[lv], total = total, total + len(rows)
+    src = np.where(step_sample >= 0, [base.get(lv, 0) for lv in step_level] + step_sample, total)
+    return levels, src
+
+
+def _prepass_profiles(mosaic, eye, spec: PanoramaSpec, azimuth_offset, elev_offset, *, seg: int,
+                      conservative: bool, bound_stride: int):
+    """The prepass's profiles along every azimuth column's ground trace:
+    ``(a0, e_prof, e_bound, e_pix)``. ``e_prof f32[N, W]`` holds the exact
+    surface's tan-elevation ratios, ``e_bound`` the dilated max pyramid's
+    (None unless ``conservative`` and the mosaic has mips), NEG_RATIO
+    outside the mosaic; ``e_pix f32[H, 1]`` the rows' elevations."""
+    from topo_renderer_tpu_torch.ops.raycast import _cell_h, _sample_hmax
+
+    dev = mosaic.device
+    W, N = spec.width, spec.n_steps
+    a0, up, (ex, ey), (nx0, ny0, nz0), _ = _eye_frame(eye)
+    ux, uy, uz = up
+
+    phi = f32(spec.azimuth_start, dev) + f32(azimuth_offset, dev) + spec.azimuth_span * (
+        (torch.arange(W, dtype=torch.float32, device=dev) + 0.5) / W
+    )
+    cphi, sphi = torch.cos(phi), torch.sin(phi)
+    hx = nx0 * cphi + ex * sphi
+    hy = ny0 * cphi + ey * sphi
+    hz = nz0 * cphi
+
+    sigma_of = _log_schedule(spec, dev)
+
+    def ground_raster(sig):
+        """Raster coordinates of every column's trace at ground angles
+        ``sig [..., 1]``: ``[..., W]`` each."""
+        cs, sn = torch.cos(sig), torch.sin(sig)
+        return raster_from_ecef(mosaic, ux * cs + hx * sn, uy * cs + hy * sn, uz * cs + hz * sn, 1.0)
+
+    # Exact trace coordinates at each segment's ends and midpoint, then the
+    # piecewise-quadratic fit of every step: ``tau`` and the segment of
+    # each step come from the host, as the JAX package's static loop.
+    starts = list(range(0, N, seg))
+    ends = [min(k0 + seg, N) for k0 in starts]
+    knots = [kf for k0, k1 in zip(starts, ends) for kf in (k0, 0.5 * (k0 + k1 - 1), k1 - 1)]
+    gx_k, gy_k = ground_raster(sigma_of(f32(knots, dev))[:, None])
+    seg_of = np.repeat(np.arange(len(starts)), [k1 - k0 for k0, k1 in zip(starts, ends)])
+    tau_np = np.concatenate([
+        (np.arange(k0, k1, dtype=np.float32) - np.float32(k0)) / np.float32(max(k1 - 1 - k0, 1))
+        for k0, k1 in zip(starts, ends)
+    ])
+    tau = f32(tau_np[:, None], dev)
+    seg_idx = to_device(torch.from_numpy(seg_of), dev)
+
+    def fit(g):
+        a, m, b_ = g.view(len(starts), 3, W).unbind(1)
+        cq = 2.0 * a - 4.0 * m + 2.0 * b_
+        bq = -3.0 * a + 4.0 * m - b_
+        return a[seg_idx] + tau * (bq[seg_idx] + tau * cq[seg_idx])
+
+    gx, gy = fit(gx_k), fit(gy_k)  # [N, W]
+    sig = sigma_of(torch.arange(N, dtype=torch.float32, device=dev))[:, None]
+    cs, sn = torch.cos(sig), torch.sin(sig)
+    sh2 = 2.0 * R0 * torch.sin(0.5 * sig) ** 2
+
+    def ratio(h, rows=slice(None)):
+        ok = h > 0.5 * INVALID_HEIGHT
+        y = h * cs[rows] - a0 - sh2[rows]
+        x = (R0 + h) * sn[rows]
+        return torch.where(ok, y / x, NEG_RATIO)
+
+    e_prof = ratio(_cell_h(mosaic, gx, gy))  # [N, W], tan-space
+    e_bound = None
+    if conservative and mosaic.mip_shapes:
+        levels, src = _prepass_bound_plan(spec, mosaic, seg, bound_stride)
+        samples = []
+        for lv, rows in levels.items():
+            r = to_device(torch.tensor(rows), dev)
+            samples.append(ratio(_sample_hmax(mosaic, lv, gx[r], gy[r]), r))
+        samples.append(torch.full((1, W), NEG_RATIO, device=dev))
+        e_bound = torch.cat(samples, dim=0)[to_device(torch.from_numpy(src), dev)]
+
+    e_lo, e_hi = spec.elevation_range()
+    rows_f = (torch.arange(spec.height, dtype=torch.float32, device=dev) + 0.5) / spec.height
+    e_pix = (f32(elev_offset, dev) + f32(e_hi, dev) - rows_f * f32(e_hi - e_lo, dev))[:, None]
+    return a0, e_prof, e_bound, e_pix
+
+
+def panorama_crossing_prepass(
+    mosaic, eye, spec: PanoramaSpec, azimuth_offset=0.0, elev_offset=0.0, *, seg: int = 64,
+    conservative: bool = True, k_back: int = 1 << 20, bound_stride: int = 1,
+):
+    """Crossing-distance brackets of the guided perspective march
+    (`ops/raycast.py::march_guided_panorama`); renders no pixels.
+
+    The triangle-exact surface is sampled along each azimuth column's ground
+    trace (``n_steps`` gathers per column, shared by every elevation row),
+    and each (row, column)'s first profile crossing comes from kernel K1
+    (`ops/crossing.py::crossing_search`, zero payloads; the plain version
+    on the CPU). The trace's raster coordinates are fitted piecewise by
+    quadratics through the ends and midpoint of every ``seg`` steps, and the
+    profile holds tan-elevation ratios (y/x), which the rows' tan(e)
+    thresholds meet directly.
+
+    ``conservative`` also samples the dilated max-height pyramid along the
+    same traces (`_prepass_bound_plan`) and takes ``d_lo`` from that bound
+    profile's first crossing (a second K1 launch), so the bracket contains
+    the first crossing even where terrain narrower than the step spacing
+    hides between samples. Where the bound crosses and the exact profile
+    never does, the bracket ends where the ray leaves the terrain shell or
+    its column's last in-mosaic sample, both without gathers.
+
+    Returns ``{"d_lo", "d_me", "d_hi", "hit", "hit_exact"}``, ``[H, W]``:
+    metric distance bounds of the crossing, FAR where sky. [d_me, d_hi] is
+    the sure interval (one log step, where the exact profile crossed);
+    [d_lo, d_me] the guard interval (the bound's backward drag). Bound-only
+    texels have d_me == d_hi.
+
+    The host plans (segments, levels, fit parameters) come from the spec
+    and the mosaic's shapes; no device value is read.
+    """
+    dev = mosaic.device
+    eye = f32(eye, dev)
+    H, N = spec.height, spec.n_steps
+    a0, e_prof, e_bound, e_pix = _prepass_profiles(
+        mosaic, eye, spec, azimuth_offset, elev_offset, seg=seg, conservative=conservative,
+        bound_stride=bound_stride,
+    )
+    sigma_of = _log_schedule(spec, dev)
+    t_pix = torch.tan(e_pix)
+    thresh = t_pix.reshape(H)
+
+    def first_crossing(prof):
+        z = torch.zeros_like(prof)
+        return crossing_search(prof, z, z, z, thresh)[0]
+
+    kstar = first_crossing(e_prof)
+    hit_exact = kstar < N
+    kstar = torch.clamp(kstar, 0.0, float(N - 1))
+    if e_bound is not None:
+        # Rays that skim above every exact sample but under the dilated
+        # bound get a bracket instead of sky; the march decides.
+        kb = first_crossing(e_bound)
+        hit = hit_exact | (kb < N)
+        kstar_b = torch.minimum(torch.clamp(kb, 0.0, float(N - 1)), kstar)
+    else:
+        hit, kstar_b = hit_exact, kstar
+
+    # d_lo: the exact bracket extended back to the bound's crossing, at
+    # most ``k_back`` log steps.
+    k_lo = torch.where(hit_exact, torch.maximum(kstar_b, kstar - float(k_back)), kstar_b)
+    sig_hi = sigma_of(kstar)
+    sig_lo = torch.where(k_lo > 0, sigma_of(torch.clamp(k_lo - 1.0, min=0.0)), 0.0)
+
+    def ray_dist(s):
+        # Where the pixel ray meets ground angle s: the height from the
+        # ray/trace geometry (no gathers), then the distance.
+        cs_, sn_ = torch.cos(s), torch.sin(s)
+        sh2s = torch.sin(0.5 * s) ** 2
+        denom = cs_ - t_pix * sn_
+        denom = torch.where(torch.abs(denom) < 1e-9, 1e-9, denom)
+        h = (a0 + 2.0 * R0 * sh2s + t_pix * R0 * sn_) / denom
+        y = h * cs_ - a0 - 2.0 * R0 * sh2s
+        x = (R0 + h) * sn_
+        return torch.sqrt(x * x + y * y)
+
+    d_lo = torch.where(hit, ray_dist(sig_lo), FAR)
+    if e_bound is not None:
+        # Bound-only texels end where the ray leaves the terrain shell (per
+        # row) or passes its column's last in-mosaic sample.
+        hm = mosaic.hmax + 1.0
+        e_norm = a0 + R0
+        b_row = e_norm * torch.sin(e_pix)  # [H, 1]; sin(el) = ray . radial
+        c_shell = (a0 - hm) * (e_norm + R0 + hm)
+        disc = b_row * b_row - c_shell
+        shell_exit = torch.where(disc > 0.0, -b_row + torch.sqrt(torch.clamp(disc, min=0.0)), FAR)
+        valid_any = (e_prof > -0.9e30) | (e_bound > -0.9e30)
+        kf = torch.arange(N, dtype=torch.float32, device=dev)[:, None]
+        k_last = torch.where(valid_any, kf, -1.0).amax(dim=0)  # [W]
+        col_exit = torch.where(
+            ((k_last >= 0.0) & (k_last < N - 1))[None, :],
+            ray_dist(sigma_of(torch.clamp(k_last + 1.0, max=N - 1.0))[None, :]),
+            FAR,
+        )
+        d_hi_bound = torch.clamp(torch.minimum(shell_exit, col_exit), max=FAR)
+        d_hi = torch.where(hit_exact, torch.maximum(ray_dist(sig_hi), d_lo), torch.maximum(d_hi_bound, d_lo))
+    else:
+        d_hi = torch.where(hit_exact, torch.maximum(ray_dist(sig_hi), d_lo), FAR)
+    # The sure interval's start: the texel ray is above the exact profile at
+    # sample kstar-1 and at or below it at kstar.
+    sig_me = torch.where(kstar > 0, sigma_of(torch.clamp(kstar - 1.0, min=0.0)), 0.0)
+    d_me = torch.where(hit_exact, torch.clamp(ray_dist(sig_me), d_lo, d_hi), d_hi)
+    return {"d_lo": d_lo, "d_me": d_me, "d_hi": d_hi, "hit": hit, "hit_exact": hit_exact}
 
 
 def render_batch_scan(mosaic, eyes, suns, spec: PanoramaSpec, view_mode=0, fog: str | None = None):

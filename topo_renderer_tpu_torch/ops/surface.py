@@ -1,8 +1,8 @@
 """Raster <-> geographic mappings and heightfield surface sampling.
 
-Port of `topo_renderer_tpu/ops/surface.py` for the panorama paths: the
-coordinate mappings, and the samplers of the triangle-exact surface the
-reference rasterizes (`render_buffer.rs:191-219`: each cell split into two
+Port of `topo_renderer_tpu/ops/surface.py` (its row-sharded `cell_rows`
+aside): the coordinate mappings, and the samplers of the triangle-exact
+surface the reference rasterizes (`render_buffer.rs:191-219`: each cell split into two
 triangles along a diagonal that alternates with ``(i + j) % 2``).
 
 Cell-local convention (matching the raster): fx grows east (columns), fy
@@ -12,8 +12,14 @@ grows south (rows); the NW corner is texel (cy, cx).
   parity 1: diagonal SW-NE; upper {NW, NE, SW} where fx + fy <= 1,
             lower {SE, NE, SW}
 
-Packed normals are read as int32 words (`models/scene.py`). The Dekker-pair
-track helpers and `sample_attributes_cell` belong to the exact-frame slice.
+Packed normals are read as int32 words (`models/scene.py`).
+
+The exact frame's track helpers (`track_coeffs`, `raster_from_coeffs`)
+expand the ray's raster track in its parameter t: every large quantity is a
+per-frame scalar, computed on the host in float32 as an error-free
+(Dekker/Knuth) pair and crossed to the device once; every per-sample
+operation is a small polynomial. The pairs are plain float32 tensor ops on
+the CPU, one rounding each, never fused or reassociated.
 """
 
 from __future__ import annotations
@@ -21,9 +27,17 @@ from __future__ import annotations
 import torch
 
 from topo_renderer_tpu_torch.models.scene import POISON_HEIGHT, unpack_normals
-from topo_renderer_tpu_torch.ops.geometry import degrees, radians
+from topo_renderer_tpu_torch.ops.geometry import degrees, f32, radians
 
 INVALID_HEIGHT = POISON_HEIGHT
+
+
+def index_i32(x, hi: int):
+    """``jnp.clip(x.astype(jnp.int32), 0, hi)`` for ``x`` an integral float
+    (a floor or a round): as XLA converts, NaN gives 0 and values past the
+    int32 range saturate, so the clamped index is XLA's on both devices
+    (torch's CPU conversion gives INT32_MIN for NaN and ±inf)."""
+    return torch.clamp(torch.nan_to_num(x, nan=0.0), 0, hi).to(torch.int32)
 
 
 def cell_rows(mosaic, idx):
@@ -62,6 +76,126 @@ def raster_from_ecef(mosaic, px, py, pz, r):
     return gx, gy
 
 
+# ---- error-free float32 arithmetic (Dekker/Knuth) ----------------------------
+# Float32 tensors in, (head, tail) pairs out: head + tail equals the exact
+# sum or product. Only O(1) per-frame scalars go through these.
+
+
+def _two_sum(a, b):
+    s = a + b
+    bb = s - a
+    return s, (a - (s - bb)) + (b - bb)
+
+
+def _two_prod(a, b):
+    """a*b as (head, tail) with head + tail == a*b exactly (Veltkamp split:
+    2^12 + 1 splits the 24-bit mantissa 12 + 12)."""
+    p = a * b
+    sp = torch.tensor(4097.0, dtype=torch.float32, device=a.device)
+    ca = a * sp
+    ah = ca - (ca - a)
+    al = a - ah
+    cb = b * sp
+    bh = cb - (cb - b)
+    bl = b - bh
+    return p, ((ah * bh - p) + ah * bl + al * bh) + al * bl
+
+
+def _df_add(x, y):
+    """(hi, lo) + (hi, lo) -> normalized pair (add22)."""
+    s, e = _two_sum(x[0], y[0])
+    e = e + x[1] + y[1]
+    return _two_sum(s, e)
+
+
+def _df_mul(x, y):
+    """(hi, lo) * (hi, lo) -> normalized pair (mul22)."""
+    p, e = _two_prod(x[0], y[0])
+    e = e + x[0] * y[1] + x[1] * y[0]
+    return _two_sum(p, e)
+
+
+def _df_neg(x):
+    return -x[0], -x[1]
+
+
+def track_frame_terms(mosaic, eye_host):
+    """The expansion's per-frame scalars, on the host in float32: a tensor
+    [u0 (pair), v0, A (pair), rho0 (pair), c0, s0, c1, s1, c1^2, s1^2].
+
+    ``eye_host`` is the eye as a CPU float32 tensor; the mosaic origin comes
+    from the host copy of ``model_point``. u0 = ey c0 - ex s0 and the
+    latitude numerator's constant A = c1^2 ez^2 - s1^2 (ex^2 + ey^2) are
+    small differences of ~6.4e6-scale terms, so they are error-free pairs.
+    """
+    ex, ey, ez = torch.as_tensor(eye_host, dtype=torch.float32).cpu().unbind(0)
+    mp = f32(mosaic.host.model_point)
+    m0, m1 = radians(mp[0]), radians(mp[1])
+    c0, s0 = torch.cos(m0), torch.sin(m0)
+    c1, s1 = torch.cos(m1), torch.sin(m1)
+    zero = torch.zeros((), dtype=torch.float32)
+    u0 = _df_add(_two_prod(ey, c0), _df_neg(_two_prod(ex, s0)))
+    v0 = ex * c0 + ey * s0
+    c1sq = _df_mul((c1, zero), (c1, zero))
+    s1sq = _df_mul((s1, zero), (s1, zero))
+    rho0 = _df_add(_two_prod(ex, ex), _two_prod(ey, ey))
+    A = _df_add(_df_mul(c1sq, _two_prod(ez, ez)), _df_neg(_df_mul(s1sq, rho0)))
+    return torch.stack([*u0, v0, *A, *rho0, c0, s0, c1, s1, c1sq[0], s1sq[0]])
+
+
+def track_coeffs(mosaic, eye, eye_host, dirs):
+    """Per-ray expansion of `raster_from_ecef` along ``p(t) = eye + t*dir``
+    (`topo_renderer_tpu/ops/surface.py:167-222`).
+
+    Materialising ``p(t)`` quantizes each component at the ECEF magnitude
+    (~0.5 m per sample in float32). Expanded in t, the rotated components
+    are:
+
+      east:   u(t) = u0 + t*du,  u0 = ey c0 - ex s0   (pair),
+              v(t) = v0 + t*dv
+      north:  n(t) = N(t) / D(t),  N(t) = A + 2 B t + C t^2,
+              A = c1^2 ez^2 - s1^2 rho^2   (pair),   D(t) = c1 pz + rho s1.
+
+    ``eye`` is the eye on the rays' device, ``eye_host`` the same values as
+    a CPU tensor: the per-frame scalars (`track_frame_terms`) are computed
+    there and cross in one copy. Returns a dict of per-ray coefficient
+    planes and per-frame scalars (pairs as ``(head, tail)``).
+    """
+    dx, dy, dz = dirs
+    t = f32(track_frame_terms(mosaic, eye_host), dx.device)
+    u0h, u0l, v0, ah, al, r0h, r0l, c0, s0, c1, s1, c1sq, s1sq = t.unbind(0)
+    ex, ey, ez = eye[0], eye[1], eye[2]
+    rho_b = ex * dx + ey * dy  # d(rho^2)/dt / 2, per ray
+    rho_c = dx * dx + dy * dy
+    return {
+        "u0": (u0h, u0l), "du": dy * c0 - dx * s0, "v0": v0, "dv": dx * c0 + dy * s0,
+        "A": (ah, al), "B": c1sq * (ez * dz) - s1sq * rho_b, "C": c1sq * (dz * dz) - s1sq * rho_c,
+        "rho0": (r0h, r0l), "rho_b": rho_b, "rho_c": rho_c, "ez": ez, "dz": dz, "c1": c1, "s1": s1,
+    }
+
+
+def raster_from_coeffs(mosaic, k, t, r):
+    """The expanded track at parameter ``t`` -> ``(gx, gy)``; ``r`` is the
+    geocentric radius at t (from the altitude quadratic)."""
+    u = (k["u0"][0] + t * k["du"]) + k["u0"][1]
+    v = k["v0"] + t * k["dv"]
+    dlon = torch.atan2(u, v)
+
+    n = (k["A"][0] + t * (2.0 * k["B"] + t * k["C"])) + k["A"][1]
+    pz = k["ez"] + t * k["dz"]
+    rho_sq = k["rho0"][0] + t * (2.0 * k["rho_b"] + t * k["rho_c"])
+    rho = torch.sqrt(torch.clamp(rho_sq, min=0.0))
+    d = pz * k["c1"] + rho * k["s1"]
+    # D -> 0 only toward the antipodal meridian plane (never inside a
+    # mosaic window); keep the quotient finite there.
+    dsin = n / torch.clamp(r * torch.abs(d), min=1.0) * torch.sign(d)
+    dlat = torch.asin(torch.clamp(dsin, -1.0, 1.0))
+
+    gx = degrees(dlon) / mosaic.pixel_scale[0]
+    gy = -degrees(dlat) / mosaic.pixel_scale[1]
+    return gx, gy
+
+
 def geo_from_raster(mosaic, gx, gy):
     lon = gx * mosaic.pixel_scale[0] + mosaic.model_point[0]
     lat = mosaic.model_point[1] - gy * mosaic.pixel_scale[1]
@@ -87,8 +221,8 @@ def _cell_setup(mosaic, gx, gy):
     in-bounds mask) of the cell holding each raster coordinate."""
     h, w = mosaic.shape
     in_bounds = (gx >= 0.0) & (gy >= 0.0) & (gx <= w - 1.0) & (gy <= h - 1.0)
-    cx = torch.clamp(torch.floor(gx).to(torch.int32), 0, w - 2)
-    cy = torch.clamp(torch.floor(gy).to(torch.int32), 0, h - 2)
+    cx = index_i32(torch.floor(gx), w - 2)
+    cy = index_i32(torch.floor(gy), h - 2)
     fx = gx - cx
     fy = gy - cy
     parity = (cx + cy) % 2
@@ -172,6 +306,29 @@ def sample_attributes_soa(mosaic, gx, gy):
     corners = [attr[i] for i in (idx, idx + 1, idx + w, idx + w + 1)]  # NW, NE, SW, SE
     h = tri_interp(*(r[..., 0] for r in corners), fx, fy, parity)
     bits = [r[..., 1].view(torch.int32) for r in corners]
+    out = []
+    for shift in (0, 10, 20):
+        codes = [((b >> shift) & 0x3FF).to(torch.float32) for b in bits]
+        comp = tri_interp(*codes, fx, fy, parity)
+        out.append(2.0 * (comp / 1023.0) - 1.0)
+    nx, ny, nz = out
+    ok = in_bounds & (h > 0.5 * INVALID_HEIGHT)
+    return torch.where(ok, h, INVALID_HEIGHT), nx, ny, nz, ok
+
+
+def sample_attributes_cell(mosaic, gx, gy):
+    """Height + world-space normal planes from one 32 B cell-row gather: the
+    rows carry the four corner heights and the corners' packed normals
+    (columns 4-7, int32 words, some of them float32 denormals, so the rows
+    are gathered and read as int32). The interpolation is
+    `sample_attributes_soa`'s. Returns ``(h, nx, ny, nz, ok)``."""
+    idx, _, fx, fy, parity, in_bounds = _cell_setup(mosaic, gx, gy)
+    if mosaic.cell_sharded:
+        raise NotImplementedError("row-sharded cell tables: ROADMAP.md slice 7")
+    rows = mosaic.cell_heights_flat.view(torch.int32)[idx]
+    heights = rows[..., :4].view(torch.float32)
+    h = tri_interp(*heights.unbind(-1), fx, fy, parity)
+    bits = rows[..., 4:].unbind(-1)
     out = []
     for shift in (0, 10, 20):
         codes = [((b >> shift) & 0x3FF).to(torch.float32) for b in bits]

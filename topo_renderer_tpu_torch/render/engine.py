@@ -1,15 +1,15 @@
 """RenderEngine: the top-level rendering API.
 
-Port of the parts of `topo_renderer_tpu/render/engine.py` the panoramas
-and the fast perspective frame use: the loaded tile set and per-tile peak
-lists (`render_engine.rs:34-44`), a mosaic rebuilt on the engine's device
-when tiles change, ``render_panorama`` with its peak-label pass,
-``render_batch`` for many viewpoints without labels, and ``render(...,
-fast=True)``, the interactive frame, with its label pass and the
-one-transfer wire (`render/transport.py`). The JAX package fuses render,
-label visibility and wire encoding into one jitted program; here they are
-plain calls on the device, and at most one buffer per frame crosses to the
-host on its own: the packed visibility, or the wire vector.
+Port of `topo_renderer_tpu/render/engine.py` on one device: the loaded tile
+set and per-tile peak lists (`render_engine.rs:34-44`), a mosaic rebuilt on
+the engine's device when tiles change, ``render_panorama`` with its
+peak-label pass, ``render_batch`` for many viewpoints without labels, and
+``render``, the perspective frame (triangle-exact, or ``fast=True`` for the
+interactive warp), with its label pass and the one-transfer wire
+(`render/transport.py`). The JAX package fuses render, label visibility
+and wire encoding into one jitted program per variant; here they are plain
+calls on the device, and at most one buffer per frame crosses to the host
+on its own: the packed visibility, or the wire vector.
 
 Peak arrays are padded to power-of-two capacities, as in the JAX package.
 """
@@ -40,7 +40,8 @@ from topo_renderer_tpu_torch.ops.panorama import (
     render_batch_scan,
     render_panorama,
 )
-from topo_renderer_tpu_torch.ops.raycast import render_perspective_fast
+from topo_renderer_tpu_torch.ops.raycast import render_perspective, render_perspective_fast
+from topo_renderer_tpu_torch.ops.surface import raster_from_geo, sample_height
 from topo_renderer_tpu_torch.render import text as text_mod
 from topo_renderer_tpu_torch.render import transport
 from topo_renderer_tpu_torch.render.overlay import composite_labels
@@ -49,9 +50,9 @@ _FOV_BUCKETS_DEG = (30.0, 45.0, 60.0, 90.0, 120.0, 160.0)
 _EXACT_QUALITIES = ("auto", "full", "interactive")
 
 
-def _fast_frame_labels(camera, out, pos, valid, *, width, height, tolerance_rel):
-    """Label visibility of a fast frame against its depth, on the frame's
-    device: packed ``i32[3, P]`` (visible, x, y)."""
+def _frame_labels(camera, out, pos, valid, *, width, height, tolerance_rel):
+    """Label visibility of a perspective frame against its depth, on the
+    frame's device: packed ``i32[3, P]`` (visible, x, y)."""
     vp = f32(camera.build_view_proj_matrix(float(width), float(height)), out["depth"].device)
     vis = peak_visibility(
         pos, valid, vp, out["depth"], width=width, height=height, tolerance_rel=tolerance_rel,
@@ -112,6 +113,7 @@ class RenderEngine:
         self._label_lock = threading.Lock()
         self._peaks_gen = 0  # bumped on peak-set changes; part of memo keys
         self._layout_memo: OrderedDict = OrderedDict()
+        self._last_exact_pose = None  # `_resolve_exact_quality`'s motion test
 
     # ---- tile management (reference: terrain_renderer.rs:173,361) --------
 
@@ -138,6 +140,15 @@ class RenderEngine:
             self._mosaic = build_mosaic([self._tiles[k] for k in order], device=self.device)
             self._dirty = False
         return self._mosaic
+
+    def height_at(self, coord) -> float | None:
+        """Triangle-exact terrain height at a coordinate, or None outside the
+        loaded tiles (the reference's `get_height_value_at`). Reads one value
+        back from the device."""
+        m = self.mosaic
+        gx, gy = raster_from_geo(m, f32(coord.longitude, m.device), f32(coord.latitude, m.device))
+        h = float(sample_height(m, gx, gy))
+        return None if h < -1.0e9 else h
 
     # ---- labels ----------------------------------------------------------
 
@@ -206,6 +217,35 @@ class RenderEngine:
         bucket = next((b for b in _FOV_BUCKETS_DEG if b >= fov - 1e-6), _FOV_BUCKETS_DEG[-1])
         return math.radians(bucket)
 
+    # The exact march's interactive rung: one union pooled leg and the own
+    # leg, 9 gather rounds against the full budget's 13
+    # (`ops/raycast.py::guided_march_rounds`).
+    _EXACT_RUNG_INTERACTIVE = (("n_window", 3), ("split_brackets", False))
+
+    @staticmethod
+    def _camera_pose_key(camera):
+        return (
+            np.asarray(camera.eye, np.float32).tobytes(),
+            float(camera.pitch), float(camera.yaw), float(camera.fov_y), camera.view_mode,
+        )
+
+    def _resolve_exact_quality(self, camera, exact_quality, guided_kw):
+        """The exact march's budget for this frame. "auto" gives the full
+        13-round budget to the first exact frame and to a frame at the pose
+        of the one before (a settle frame), and the interactive rung to a
+        frame whose pose moved; "full" and "interactive" pin either.
+        ``guided_kw`` entries override the rung's."""
+        if exact_quality not in _EXACT_QUALITIES:
+            raise ValueError(f"unknown exact_quality {exact_quality!r}")
+        pose = self._camera_pose_key(camera)
+        moving = self._last_exact_pose is not None and pose != self._last_exact_pose
+        self._last_exact_pose = pose
+        if exact_quality == "interactive" or (exact_quality == "auto" and moving):
+            merged = dict(self._EXACT_RUNG_INTERACTIVE)
+            merged.update(dict(guided_kw))
+            return tuple(sorted(merged.items()))
+        return guided_kw
+
     # ---- perspective frames ---------------------------------------------
 
     def render(
@@ -229,12 +269,18 @@ class RenderEngine:
     ) -> RenderResult:
         """One perspective frame with the peak-label pass.
 
+        ``fast=False`` (the default) is the triangle-exact frame
+        (`render_perspective`): with ``guided`` the panorama-prepass guided
+        march with ``guided_kw`` (`march_guided_panorama`, its window sized
+        from the camera's fov bucket), else the uniform or two-level
+        ``march`` of ``n_steps`` steps and ``n_refine`` bisections (strict
+        parity work). ``exact_quality`` picks the guided march's budget:
+        "auto" marches a frame whose pose moved since the previous exact
+        frame on the interactive rung and other frames on the full budget;
+        "full" and "interactive" pin either (`_resolve_exact_quality`).
         ``fast=True`` renders through the LOD panorama engine and warps to
         the perspective grid (`render_perspective_fast`, ``n_steps`` capped
-        at 512). ``fast=False`` is the triangle-exact path, which with
-        ``n_refine``, ``guided``, ``guided_kw`` and ``exact_quality``
-        belongs to a later slice of the port (ROADMAP.md slice 3) and
-        raises NotImplementedError.
+        at 512).
 
         ``host_copy=False`` leaves ``color_linear``, ``depth``, ``distance``
         and ``hit`` on the device; ``u8_host=False`` leaves the u8 frame
@@ -245,20 +291,29 @@ class RenderEngine:
         """
         if wire is not None and wire not in transport.MODES:
             raise ValueError(f"unknown wire mode {wire!r}")
-        if exact_quality not in _EXACT_QUALITIES:
+        if not fast and guided:
+            guided_kw = self._resolve_exact_quality(camera, exact_quality, guided_kw)
+        elif exact_quality not in _EXACT_QUALITIES:
             raise ValueError(f"unknown exact_quality {exact_quality!r}")
-        if not fast:
-            raise NotImplementedError("the triangle-exact frame (fast=False): ROADMAP.md slice 3")
-        out = render_perspective_fast(
-            self.mosaic, camera, width=width, height=height, n_steps=min(n_steps, 512),
-            pixelize_n=pixelize_n, fov_hint=self._fov_bucket_rad(camera),
-        )
+        fov_hint = self._fov_bucket_rad(camera)
+        if fast:
+            out = render_perspective_fast(
+                self.mosaic, camera, width=width, height=height, n_steps=min(n_steps, 512),
+                pixelize_n=pixelize_n, fov_hint=fov_hint,
+            )
+        else:
+            out = render_perspective(
+                self.mosaic, camera, width=width, height=height, n_steps=n_steps, n_refine=n_refine,
+                pixelize_n=pixelize_n, guided=guided, fov_hint=fov_hint if guided else None,
+                guided_kw=guided_kw,
+            )
         entries, packed = [], None
         if with_labels and self._peaks:
             entries, pos, valid = self._padded_peaks()
-            # LOD depth carries a distance-proportional error; the
-            # reference's absolute 10 m applies to the exact path.
-            packed = _fast_frame_labels(camera, out, pos, valid, width=width, height=height, tolerance_rel=0.05)
+            # LOD depth carries a distance-proportional error; the exact
+            # frame takes the reference's absolute 10 m alone.
+            packed = _frame_labels(camera, out, pos, valid, width=width, height=height,
+                                   tolerance_rel=0.05 if fast else 0.0)
         if wire is not None:
             names = {(loc, i): self._peaks[loc][i].name for (loc, i, _) in entries}
             n_peaks = 0 if packed is None else int(packed.shape[1])
@@ -281,9 +336,13 @@ class RenderEngine:
         if u8_host:
             color_u8 = color_u8.cpu().numpy()
             if composite and layouts:
-                names = {(loc, i): self._peaks[loc][i].name for loc in visible_labels for i, _ in visible_labels[loc]}
-                color_u8 = composite_labels(color_u8, layouts, names)
+                color_u8 = composite_labels(color_u8, layouts, self.label_names(visible_labels))
         return self._result(out, color_u8, visible_labels, layouts, host_copy=host_copy)
+
+    def label_names(self, visible_labels) -> dict:
+        """Names map for `composite_labels`, for callers that composite
+        outside the render call."""
+        return {(loc, i): self._peaks[loc][i].name for loc in visible_labels for i, _ in visible_labels[loc]}
 
     @staticmethod
     def _result(out, color, visible_labels, layouts, *, host_copy, finish=None):
