@@ -50,12 +50,23 @@ Phases (any failure exits non-zero):
         prepass's profiles) and K2/K3 never, hits terrain and sky and has >
         200 colours. Per rung the host syncs inside a frame (must be 0) and
         the device-only ms by CUDA-graph replay; the settle frame's device
-        busy share.
+        busy share. Then one frame of each march without the own-texel leg
+        (``guided_kw`` with ``guard_legs=False``, split legs and one pooled
+        bracket): K1 twice, 0 host syncs, device-only ms;
+     g. streaming: `RenderEngine(streaming=True)` on 3 x 3 tiles at 44-46N,
+        11-13E (a 6144^2 canvas); one degree east unloads the 11E column and
+        adds the 14E column, six slot updates that must be queued, not
+        rebuilt (no kernel launch; host-clock ms, host syncs); the tables
+        equal a fresh `build_mosaic` of the same tiles on the same canvas bit
+        for bit (its ms is printed), and a fast frame (K1 1, K2 1) and an
+        exact frame (K1 2) after the updates equal the fresh build's frames
+        bit for bit with 0 host syncs; then the 15E column leaves the canvas
+        and must rebuild in full (ms), and the phase's peak device memory.
      Small scenes rendered on the card and on the CPU (plain versions) must
      agree, for the fast preset, the fallback's spec, the fast frame
      (level, 1.1 rad down and across azimuth ±pi) and the exact frame at
-     320 x 180 (guided and unguided; the unguided two-level frame's host
-     syncs are printed);
+     320 x 180 (guided, unguided and both marches without the own-texel
+     leg; the unguided two-level frame's host syncs are printed);
   5. each kernel's own device time with torch.profiler, after the paths'
      timings so that no profiler has run before them, and the ``kernels``
      JSON line. Per-call times (CUDA events) come from phases 3 and 4.
@@ -212,24 +223,24 @@ def terrain(lat, lon):
     return h.astype(np.float32)
 
 
-def make_tiles(lat0=LAT0, lon0=LON0, tiles=TILES, n=TEXELS):
+def make_tile(lat, lon, n=TEXELS):
+    """The COP-90-shaped tile whose SW corner is (lat, lon): (location,
+    heights, transform), as `RenderEngine.add_terrain` takes them."""
     from topo_renderer_tpu_torch.data.coordinate_transform import CoordinateTransform
     from topo_renderer_tpu_torch.geo import GeoLocation
 
     ps = 1.0 / (n - 1)
-    out = []
-    for ty in range(tiles):
-        for tx in range(tiles):
-            lat, lon = lat0 + ty, lon0 + tx
-            lats = (lat + 1.0 - ps * np.arange(n))[:, None]
-            lons = (lon + ps * np.arange(n))[None, :]
-            out.append((
-                GeoLocation.from_coord(lat, lon),
-                terrain(lats, lons),
-                CoordinateTransform(raster_point=(0.0, 0.0), model_point=(float(lon), float(lat + 1)),
-                                    pixel_scale=(ps, ps)),
-            ))
-    return out
+    lats = (lat + 1.0 - ps * np.arange(n))[:, None]
+    lons = (lon + ps * np.arange(n))[None, :]
+    return (
+        GeoLocation.from_coord(lat, lon),
+        terrain(lats, lons),
+        CoordinateTransform(raster_point=(0.0, 0.0), model_point=(float(lon), float(lat + 1)), pixel_scale=(ps, ps)),
+    )
+
+
+def make_tiles(lat0=LAT0, lon0=LON0, tiles=TILES, n=TEXELS):
+    return [make_tile(lat0 + ty, lon0 + tx, n) for ty in range(tiles) for tx in range(tiles)]
 
 
 def make_peaks(center_lat, center_lon, count, radius_deg, lat0, lon0, tiles):
@@ -598,6 +609,24 @@ def batched_origins(tables, batch, wsy, wsx):
     return torch.from_numpy(origins).cuda()
 
 
+def batched_bytes(tables, org, wsy, wsx):
+    """Bytes the batched copy must move for these origins: each table texel
+    that some window covers read once (the viewpoints' windows overlap on
+    the smaller levels), every window written once."""
+    import torch
+
+    total = 0
+    for lv, t in enumerate(tables):
+        h, w = t.shape[-2:]
+        cover = torch.zeros((h, w), dtype=torch.bool, device=t.device)
+        for y, x in org[:, lv].tolist():
+            y, x = min(max(y, 0), h - wsy), min(max(x, 0), w - wsx)  # clamped as the copy clamps
+            cover[y : y + wsy, x : x + wsx] = True
+        planes = t.shape[0] if t.dim() == 3 else 1
+        total += 4 * planes * (int(cover.sum()) + org.shape[0] * wsy * wsx)
+    return total
+
+
 def check_window_slice_batched(batch=256):
     import torch
 
@@ -617,14 +646,17 @@ def check_window_slice_batched(batch=256):
     plain3 = cuda_ms(lambda: K.window_slice_multi_batched_plain(tables, org, wsy=wsy, wsx=wsx), iters=2)
     k2_loop = cuda_ms(lambda: [K.window_slice_multi(tables, org[b], wsy=wsy, wsx=wsx) for b in range(batch)],
                       iters=3)
-    nbytes = 2 * len(tables) * batch * 2 * wsy * wsx * 4  # read once, written once
+    nbytes = batched_bytes(tables, org, wsy, wsx)
+    window_bytes = 2 * len(tables) * batch * 2 * wsy * wsx * 4  # every window read and written
     log(f"K3 window_slice_multi_batched: bit-exact on B={batch} x {len(tables)} levels; {ms3:.4f} ms "
-        f"per call (plain {plain3:.3f} ms, {batch} x K2 {k2_loop:.3f} ms), {nbytes / 1e9:.3f} GB moved, "
-        f"{nbytes / (ms3 * 1e-3) / 1e12:.2f} TB/s")
+        f"per call (plain {plain3:.3f} ms, {batch} x K2 {k2_loop:.3f} ms); {nbytes / 1e9:.3f} GB needed (the "
+        f"covered table texels once, the windows written once; {window_bytes / 1e9:.3f} GB reading every "
+        f"window), {window_bytes / (ms3 * 1e-3) / 1e12:.2f} TB/s of window traffic")
     return dict(
         name="window_slice_multi_batched", route="cuda", source="topo_renderer_tpu_torch/csrc/window_slice.cu",
         replaces="topo_renderer_tpu/ops/pallas_dma.py:113", max_abs_err=0.0, ms=ms3, plain_ms=plain3,
         bound_ms=1e3 * nbytes / HBM_BYTES_PER_S, bound_by="bytes", library_ms=None, k2_loop_ms=k2_loop,
+        bound_every_window_ms=1e3 * window_bytes / HBM_BYTES_PER_S,
         device_fns=[(None, lambda: K.window_slice_multi_batched(tables, org, wsy=wsy, wsx=wsx), 20)],
     )
 
@@ -1149,6 +1181,253 @@ def exact_frame_path(engine, cam, frames=10):
     return counts, host_ms, dev_ms, profiled
 
 
+UNGUARDED = {"exact_frame_unguarded": (("guard_legs", False),),
+             "exact_frame_unguarded_single": (("guard_legs", False), ("split_brackets", False))}
+
+
+def unguarded_exact_frames(engine, cam):
+    """Phase 4f, the two marches without the own-texel leg: one 800 x 450
+    exact frame each (``guard_legs=False``, split cluster legs and one
+    pooled bracket), K1 twice and K2/K3 never, hit, sky and > 200 colours,
+    0 host syncs inside a frame, the device-only ms by CUDA-graph replay.
+    Returns the launch counts of each frame by path name."""
+    import torch
+
+    counts = {}
+    for name, kw in UNGUARDED.items():
+        exact_frame(engine, cam, "full", guided_kw=kw)  # allocator warm-up
+        torch.cuda.synchronize()
+        reset_counts()
+        t0 = time.perf_counter()
+        res = exact_frame(engine, cam, "full", guided_kw=kw)
+        ms = 1e3 * (time.perf_counter() - t0)
+        counts[name] = read_counts()
+        expect_counts(name, counts[name], {"crossing_search": 2, "window_slice_multi": 0,
+                                           "window_slice_multi_batched": 0, "window_slice": 0})
+        hit = float(res.hit.float().mean())
+        colours = len(np.unique(res.color.reshape(-1, 3), axis=0))
+        if res.color.shape != (FAST_H, FAST_W, 3) or not bool(torch.isfinite(res.color_linear).all()):
+            raise AssertionError(f"{name}: bad output")
+        if not 0.0 < hit < 1.0 or colours <= 200:
+            raise AssertionError(f"{name}: hit {hit:.3f}, {colours} colours")
+
+        def frame():
+            exact_frame(engine, cam, "full", guided_kw=kw, u8_host=False)
+
+        syncs = host_syncs(frame)
+        if syncs:
+            raise AssertionError(f"{name}: {len(syncs)} host syncs inside a frame at {syncs[:8]}")
+        dev_ms, why = graph_ms(frame)
+        if why is not None:
+            raise AssertionError(f"{name}: no CUDA graph capture ({why})")
+        log(f"{name} (guided_kw {dict(kw)}): {FAST_W}x{FAST_H}, 1024 steps, one frame with the u8 pull "
+            f"{ms:.2f} ms host clock; hit {hit:.3f}, {colours} colours; host syncs inside a frame 0; device only "
+            f"(CUDA graph, 20 replays) {dev_ms:.3f} ms; K1 2 launches")
+    return counts
+
+
+# ---- phase 4g: streaming tile updates ---------------------------------------
+
+STREAM_LAT, STREAM_LON = 44, 11  # the 3 x 3 working set at 44-46N, 11-13E
+
+
+def mosaic_tables(m):
+    """name -> device tensor (int32 words) of every table and scalar of a
+    mosaic, for a bit-for-bit comparison."""
+    import torch
+
+    out = {}
+    for name in ("heights_flat", "attr_packed_flat", "cell_heights_flat", "hmax", "bound_center",
+                 "bound_radius"):
+        out[name] = getattr(m, name)
+    for name in ("mip_heights_flat", "mip_attr_flat", "mip_hmax_flat", "mip_hmax_raw_flat", "win_attr_2d"):
+        for lv, t in enumerate(getattr(m, name)):
+            if t is not None:
+                out[f"{name}[{lv}]"] = t
+    return {k: v.contiguous().view(torch.int32) for k, v in out.items()}
+
+
+def update_breakdown(engine, lat, lon):
+    """Where one unload and one re-add of the tile at (lat, lon) spend
+    their host time: the region assembly (numpy), the queued device work
+    of `apply_slot_update`, and the rest of `_apply_pending` (owner
+    windows, pinned copies, the `hmax` read); then the pair under
+    torch.profiler."""
+    import torch
+
+    from topo_renderer_tpu_torch.geo import GeoLocation
+    from topo_renderer_tpu_torch.render import engine as engine_mod
+
+    location = GeoLocation.from_coord(lat, lon)
+    spent = {"region assembly": 0.0, "apply_slot_update, queued": 0.0}
+
+    def timed(fn, key):
+        def call(*args, **kw):
+            t0 = time.perf_counter()
+            try:
+                return fn(*args, **kw)
+            finally:
+                spent[key] += 1e3 * (time.perf_counter() - t0)
+        return call
+
+    tile = engine._tiles[location]
+    args = (location, tile.heights, tile.transform)
+    assemble, apply = engine._assemble_region, engine_mod.apply_slot_update
+    engine._assemble_region = timed(assemble, "region assembly")
+    engine_mod.apply_slot_update = timed(apply, "apply_slot_update, queued")
+    try:
+        engine.unload_terrain(location)
+        engine.add_terrain(*args)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        engine.mosaic
+        torch.cuda.synchronize()
+        total = 1e3 * (time.perf_counter() - t0)
+    finally:
+        engine._assemble_region, engine_mod.apply_slot_update = assemble, apply
+    log(f"streaming: one unload and one add of the {lat}N {lon}E tile: {total:.1f} ms host clock; "
+        + ", ".join(f"{k} {v:.1f} ms" for k, v in spent.items())
+        + f", the rest of _apply_pending {total - sum(spent.values()):.1f} ms")
+    engine.unload_terrain(location)
+    engine.add_terrain(*args)
+    log("streaming: the same pair under torch.profiler:")
+    frame_profile(lambda: engine.mosaic, host_top=8)
+    if engine._pending or engine._dirty:
+        raise AssertionError("streaming: profiled updates left pending")
+
+
+def streaming_path():
+    """Phase 4g: `RenderEngine(streaming=True)` on the 3 x 3 COP-90-shaped
+    tiles at 44-46N, 11-13E (a 6144^2 canvas), one degree east (unload the
+    11E column, add the 14E column: six slot updates, queued, not rebuilt),
+    the tables against a fresh `build_mosaic` of the same tiles on the same
+    canvas bit for bit, one fast and one exact frame from each mosaic bit
+    for bit, then a tile that leaves the canvas (15E) and its full rebuild.
+    Returns the launch counts by path name."""
+    import dataclasses
+
+    import torch
+
+    from topo_renderer_tpu_torch.geo import GeoLocation
+    from topo_renderer_tpu_torch.models.mosaic_update import streaming_canvas_dim
+    from topo_renderer_tpu_torch.models.scene import build_mosaic
+    from topo_renderer_tpu_torch.ops.raycast import render_perspective, render_perspective_fast
+    from topo_renderer_tpu_torch.render.engine import RenderEngine
+
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()  # what earlier phases still hold
+    engine = RenderEngine(streaming=True)
+    for lat in range(STREAM_LAT, STREAM_LAT + 3):
+        for lon in range(STREAM_LON, STREAM_LON + 3):
+            engine.add_terrain(*make_tile(lat, lon))
+    t0 = time.perf_counter()
+    engine.mosaic
+    torch.cuda.synchronize()
+    first_s = time.perf_counter() - t0
+    memory = {"first build": (torch.cuda.max_memory_allocated(), torch.cuda.memory_allocated())}
+    side = streaming_canvas_dim(5 * (TEXELS - 1) + 1)  # the tiles' box and a tile each side: 6144 at 1201
+    if engine._canvas[2:4] != (side, side):
+        raise AssertionError(f"streaming canvas {engine._canvas[2:4]}, not {side} x {side}")
+
+    counts = {}
+    for lat in range(STREAM_LAT, STREAM_LAT + 3):
+        engine.unload_terrain(GeoLocation.from_coord(lat, STREAM_LON))
+    for lat in range(STREAM_LAT, STREAM_LAT + 3):
+        engine.add_terrain(*make_tile(lat, STREAM_LON + 3))
+    if engine._dirty or [op for op, *_ in engine._pending] != ["remove"] * 3 + ["add"] * 3:
+        raise AssertionError(f"streaming: the move east was not queued as six slot updates ({engine._pending})")
+    reset_counts()
+    t0 = time.perf_counter()
+    update_syncs = host_syncs(lambda: engine.mosaic)
+    update_ms = 1e3 * (time.perf_counter() - t0)
+    counts["streaming_update"] = read_counts()
+    expect_counts("streaming update", counts["streaming_update"], dict.fromkeys(counts["streaming_update"], 0))
+    if engine._pending or engine._dirty:
+        raise AssertionError("streaming: updates left pending")
+
+    # A fresh build of the same tiles on the same canvas, listed in slot
+    # order (the tile of slot 0 lends its rotation to valid texels without
+    # an owning cell, in both the build and the update).
+    order = sorted(engine._slots, key=lambda loc: engine._slots[loc][0])
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    fresh = build_mosaic([engine._tiles[loc] for loc in order], canvas=engine._canvas[:4], keep_hmax_raw=True,
+                         device=engine.device)
+    torch.cuda.synchronize()
+    fresh_s = time.perf_counter() - t0
+    memory["fresh build beside the engine's"] = (torch.cuda.max_memory_allocated(), torch.cuda.memory_allocated())
+    got, want = mosaic_tables(engine.mosaic), mosaic_tables(fresh)
+    differ = [k for k in want if got[k].shape != want[k].shape or not torch.equal(got[k], want[k])]
+    if got.keys() != want.keys() or differ or not np.array_equal(engine.mosaic.host.valid, fresh.host.valid):
+        raise AssertionError(f"streaming: updated tables differ from a fresh build: {differ}")
+    n_tables = len(want)
+    del got, want  # views: they would keep both canvases alive
+    log(f"streaming (phase 4g): 3x3 tiles of {TEXELS}^2 at {STREAM_LAT}-{STREAM_LAT + 2}N, "
+        f"{STREAM_LON}-{STREAM_LON + 2}E on a {engine._canvas[2]}x{engine._canvas[3]} canvas; first build "
+        f"{first_s * 1e3:.1f} ms host clock; one degree east = 6 slot updates in {update_ms:.1f} ms "
+        f"({update_ms / 6:.1f} ms per update; host syncs in the updates: {len(update_syncs)}"
+        f"{' at ' + ', '.join(update_syncs[:4]) if update_syncs else ''}); a fresh build of the same canvas "
+        f"{fresh_s * 1e3:.1f} ms; {n_tables} tables equal bit for bit")
+
+    cam = camera_at(STREAM_LAT + 1.4, STREAM_LON + 2.3, 300.0)
+    cam = dataclasses.replace(cam, yaw=yaw_toward(cam, 1.2), pitch=0.05)
+    fov_hint = engine._fov_bucket_rad(cam)
+    frames = {
+        "streaming_fast_frame": (
+            dict(n_steps=512, fast=True), {"crossing_search": 1, "window_slice_multi": 1},
+            lambda m: render_perspective_fast(m, cam, width=FAST_W, height=FAST_H, n_steps=512,
+                                              fov_hint=fov_hint)),
+        "streaming_exact_frame": (
+            dict(EXACT_KW, exact_quality="full"), {"crossing_search": 2, "window_slice_multi": 0},
+            lambda m: render_perspective(m, cam, width=FAST_W, height=FAST_H, n_steps=EXACT_KW["n_steps"],
+                                         n_refine=EXACT_KW["n_refine"], guided=True, fov_hint=fov_hint)),
+    }
+    for name, (kw, want_counts, plain) in frames.items():
+        def frame():
+            return engine.render(cam, FAST_W, FAST_H, with_labels=False, host_copy=False, u8_host=False, **kw)
+
+        frame()
+        torch.cuda.synchronize()
+        reset_counts()
+        res = frame()
+        torch.cuda.synchronize()
+        counts[name] = read_counts()
+        expect_counts(name, counts[name], dict(want_counts, window_slice_multi_batched=0))
+        ref = plain(fresh)
+        for key, a, b in (("color", res.color_linear, ref["color"]), ("depth", res.depth, ref["depth"]),
+                          ("hit", res.hit, ref["hit"])):
+            if not torch.equal(a, b):
+                raise AssertionError(f"{name}: {key} differs from the fresh build's frame")
+        syncs = host_syncs(frame)
+        if syncs:
+            raise AssertionError(f"{name}: {len(syncs)} host syncs inside a frame at {syncs[:8]}")
+        hit = float(res.hit.float().mean())
+        if not 0.0 < hit:
+            raise AssertionError(f"{name}: no terrain in view")
+        log(f"{name}: {FAST_W}x{FAST_H} after the updates, equal bit for bit to the fresh build's frame; hit "
+            f"{hit:.3f}; host syncs inside a frame 0; launches {counts[name]}")
+    del fresh, ref, res
+    update_breakdown(engine, STREAM_LAT, STREAM_LON + 3)
+
+    for lat in range(STREAM_LAT, STREAM_LAT + 3):
+        engine.add_terrain(*make_tile(lat, STREAM_LON + 4))
+    if not engine._dirty or engine._pending:
+        raise AssertionError("streaming: a tile off the canvas did not ask for a full rebuild")
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    m = engine.mosaic
+    torch.cuda.synchronize()
+    rebuild_s = time.perf_counter() - t0
+    memory["rebuild"] = (torch.cuda.max_memory_allocated(), torch.cuda.memory_allocated())
+    log(f"streaming: the 15E column leaves the canvas: full rebuild of {len(engine.loaded_locations)} tiles on "
+        f"a {m.shape[0]}x{m.shape[1]} canvas in {rebuild_s * 1e3:.1f} ms host clock; device memory above the "
+        f"phase's start (torch.cuda.max_memory_allocated / memory_allocated after): "
+        + ", ".join(f"{k} {(peak - base) / 1e9:.2f} / {(now - base) / 1e9:.2f} GB" for k, (peak, now) in memory.items()))
+    del engine, m
+    torch.cuda.empty_cache()
+    return counts
+
+
 def small_scene_agreement():
     """One small scene on the card and on the CPU (plain versions): the
     same frame up to float rounding. Dither seeds hash world positions, so
@@ -1187,6 +1466,8 @@ def small_scene_agreement():
              "fast frame across ±pi": (dataclasses.replace(cam, yaw=yaw_toward(cam, math.pi - 0.2)), fast_kw),
              "exact frame guided": (cam, exact_kw),
              "exact frame unguided": (cam, dict(exact_kw, guided=False))}
+    for name, guided_kw in UNGUARDED.items():
+        poses[name.replace("_", " ")] = (cam, dict(exact_kw, guided_kw=guided_kw))
     syncs = host_syncs(lambda: engines["cuda"].render(cam, 320, 180, composite=False,
                                                       **poses["exact frame unguided"][1]))
     log(f"small scene exact frame unguided (two-level march, 512 steps) at 320x180: {len(syncs)} host syncs "
@@ -1215,7 +1496,12 @@ def small_scene_agreement():
         around = c.distance[max(y - 1, 0) : y + 2, max(x - 1, 0) : x + 2]
         # Colours at the golden tolerance: a last bit flips a pixel's dither.
         near = float((np.abs(g.color.astype(np.int16) - c.color.astype(np.int16)).max(-1) <= 2).mean())
-        if (hit_agree < 0.99 or ddepth > 1e-3 or p99 > 5e-4 or over > 0.01 or rel.max() > 2e-2 or near < 0.99
+        # The marches without the own-texel leg resolve a silhouette pixel
+        # from a pooled bracket alone, so a last bit can move it to the
+        # bracket's other crossing: their max is the tests' march limit
+        # against jitted JAX (`tests/test_torch_exact_frame.py`).
+        max_rel = 5e-2 if "unguarded" in name else 2e-2
+        if (hit_agree < 0.99 or ddepth > 1e-3 or p99 > 5e-4 or over > 0.01 or rel.max() > max_rel or near < 0.99
                 or not g.hit.any()):
             raise AssertionError(f"small scene {name}: card vs CPU hit agreement {hit_agree:.4f}, "
                                  f"depth diff {ddepth:.2e}, relative distance diff p99 {p99:.2e} max "
@@ -1268,7 +1554,7 @@ def main(argv) -> int:
     torch.cuda.empty_cache()
     order = ("name", "route", "source", "replaces", "launches", "max_abs_err", "ms", "device_ms", "plain_ms",
              "bound_ms", "bound_by", "library_ms", "launches_per_call", "batch_shape", "fast_shape",
-             "prepass_shape")
+             "prepass_shape", "bound_every_window_ms")
     kernels = [k1, k2, k3, k4]
     if kernels_only:
         device_times(kernels)
@@ -1286,8 +1572,10 @@ def main(argv) -> int:
     per_call["fast_frame_labels"], labelled_ms, label_ms = labelled_fast_frame_path(engine, cam)
     exact_counts, exact_ms, exact_dev_ms, exact_profile = exact_frame_path(engine, cam)
     per_call["exact_frame"], per_call["exact_frame_interactive"] = exact_counts["full"], exact_counts["interactive"]
+    per_call.update(unguarded_exact_frames(engine, cam))
     del engine
     torch.cuda.empty_cache()
+    per_call.update(streaming_path())
     device_times(kernels)
     # ``launches``: one call of the path each kernel serves (K3 and K1: the
     # batch; K2: the single panorama); every path's count is in

@@ -76,6 +76,12 @@ MARCHES = {
     "guided_panorama_interactive": dict(fn="march_guided_panorama",
                                         kw=dict(n_steps=384, n_refine=16, fov_hint=FOV, aspect=W / H,
                                                 n_window=3, split_brackets=False)),
+    "guided_panorama_unguarded": dict(fn="march_guided_panorama",
+                                      kw=dict(n_steps=384, n_refine=16, fov_hint=FOV, aspect=W / H,
+                                              guard_legs=False)),
+    "guided_panorama_unguarded_single": dict(fn="march_guided_panorama",
+                                             kw=dict(n_steps=384, n_refine=16, fov_hint=FOV, aspect=W / H,
+                                                     guard_legs=False, split_brackets=False)),
 }
 
 

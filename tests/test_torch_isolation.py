@@ -93,11 +93,13 @@ def _cpu_engine():
 
 
 def test_cpu_fast_frame_launches_no_kernel_and_exact_frame_raises():
-    """Fast and exact frames on the CPU launch no kernel; the exact march's
-    rungs without guard legs are not ported and raise."""
+    """Fast and exact frames on the CPU launch no kernel, the exact march's
+    rungs without guard legs included; an unknown quality raises."""
     engine, cam = _cpu_engine()
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        engine.render(cam, 32, 24, n_steps=64, guided_kw=(("guard_legs", False),))
+    for split in (True, False):
+        res = engine.render(cam, 32, 24, n_steps=384, n_refine=4, host_copy=False,
+                            guided_kw=(("guard_legs", False), ("split_brackets", split)))
+        assert res.hit.any() and res.hit.device.type == "cpu"
     with pytest.raises(ValueError, match="exact_quality"):
         engine.render(cam, 32, 24, fast=True, exact_quality="best")
     res = engine.render(cam, 48, 32, n_steps=64, fast=True, wire="yuv420", host_copy=False)
@@ -108,6 +110,30 @@ def test_cpu_fast_frame_launches_no_kernel_and_exact_frame_raises():
         res = engine.render(cam, 48, 32, n_steps=384, n_refine=4, guided=guided, wire="yuv420", host_copy=False)
         assert res.finish(res.color.numpy())[0].shape == (32, 48, 3) and res.hit.any()
     assert [f.launches for f in COUNTERS] == [0, 0, 0, 0]
+
+
+def test_cpu_streaming_engine_launches_no_kernel():
+    """A streaming engine on the CPU: slot updates and the frames after them
+    launch no kernel."""
+    n = 33
+    ps = SPAN / (n - 1)
+    ys, xs = np.mgrid[0:2 * n - 1, 0:n] / (n - 1)
+    field = (1500 + 400 * np.sin(5 * xs) * np.cos(4 * ys)).astype(np.float32)
+    tiles = [(GeoLocation.from_coord(47 - k, 11), field[k * (n - 1) : k * (n - 1) + n],
+              CoordinateTransform((0.0, 0.0), (11.0, 47.0 + SPAN - k * SPAN), (ps, ps))) for k in (0, 1)]
+    engine = RenderEngine(device="cpu", streaming=True)
+    engine.add_terrain(*tiles[0])
+    engine.mosaic
+    for f in COUNTERS:
+        f.launches = 0
+    engine.add_terrain(*tiles[1])
+    assert engine._pending and engine.loaded_locations == {tiles[0][0], tiles[1][0]}
+    cam = Camera().reset(GeoCoord(47.0 + SPAN / 2, 11.0 + SPAN / 4), 2300.0)
+    assert engine.render(cam, 48, 32, n_steps=64, fast=True, host_copy=False).hit.any()
+    engine.unload_terrain(tiles[0][0])
+    assert engine._pending and engine.loaded_locations == {tiles[1][0]}
+    engine.render(cam, 48, 32, n_steps=384, n_refine=4, host_copy=False)
+    assert not engine._pending and [f.launches for f in COUNTERS] == [0, 0, 0, 0]
 
 
 def test_cpu_path_launches_no_kernel():

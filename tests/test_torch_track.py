@@ -347,12 +347,27 @@ def test_bound_plan_matches_jax_segments(scene):
     assert first > 0 and first % 64 == 0 and far[first:].all()
 
 
-def test_unported_quad_marches_raise(scene):
+def test_unported_quad_marches_raise(scene, monkeypatch):
+    """The two unguarded branches (once stubs that raised): the split legs
+    (`_window_march_quad2`) and the single pooled bracket
+    (`_window_march_quad`) run, resolve hits, and take per pixel exactly
+    `guided_march_rounds(guard_legs=False)` corner-row gathers, besides
+    the prepass's one."""
     mosaic, pm, cam, dirs, fwd = scene
-    for fn in (pray._window_march_quad, pray._window_march_quad2):
-        with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-            fn()
-    for kw in ({"guard_legs": False}, {"guard_legs": False, "split_brackets": False}):
-        with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-            pray.march_guided_panorama(pm, T(np.asarray(cam.eye, np.float32)), tuple(map(T, dirs)), T(fwd),
-                                       n_steps=128, n_refine=4, fov_hint=math.radians(45.0), aspect=1.5, **kw)
+    gathers = []
+
+    def counted(m, idx):
+        gathers.append(tuple(idx.shape))
+        return psurf.cell_rows(m, idx)
+
+    monkeypatch.setattr(pray, "cell_rows", counted)
+    for split in (True, False):
+        gathers.clear()
+        kw = dict(guard_legs=False, split_brackets=split)
+        hit, t_hit = pray.march_guided_panorama(pm, T(np.asarray(cam.eye, np.float32)), tuple(map(T, dirs)), T(fwd),
+                                                n_steps=384, n_refine=4, fov_hint=math.radians(45.0), aspect=1.5,
+                                                **kw)
+        per_pixel = [g for g in gathers if g == dirs[0].shape]
+        assert len(gathers) - len(per_pixel) == 1  # the prepass's exact profile
+        assert len(per_pixel) == pray.guided_march_rounds(**kw) == jray.guided_march_rounds(**kw)
+        assert bool(hit.any()) and bool(torch.isfinite(t_hit[hit]).all())

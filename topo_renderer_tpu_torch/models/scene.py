@@ -105,7 +105,7 @@ class TerrainMosaic:
     # Per-level 2-D copies f32[2, h_l, w_l] (plane 0 heights, plane 1 packed
     # normal bits); None below the build's window_table_min.
     win_attr_2d: tuple = ()
-    mip_hmax_raw_flat: tuple = ()  # streaming builds only (not ported yet)
+    mip_hmax_raw_flat: tuple = ()  # undilated max pyramid (level 1..), streaming builds only
     sharded_rows: tuple = ()  # multi-device builds only (not ported yet)
     cell_sharded: bool = False  # multi-device builds only (not ported yet)
     texel_m: float = 92.6  # base texel size hint, 3 significant digits
@@ -133,6 +133,7 @@ ARRAY_FIELDS = (
     "bound_center",
     "bound_radius",
     "win_attr_2d",
+    "mip_hmax_raw_flat",
 )
 
 
@@ -169,6 +170,44 @@ def _shifts(x: torch.Tensor):
     return x, e, s_, se
 
 
+def _enc10(c):
+    return torch.round(torch.clamp(0.5 * (c + 1.0), 0.0, 1.0) * 1023.0).to(torch.int32)
+
+
+def world_packed(h_for_normals, v, owner_l, rot_flat, geo, level: int, *, quantize_normals: bool,
+                 correct_axes: bool, row_span=None):
+    """World-space packed normal words (int32) of one pyramid level: the
+    level's normals rotated by each texel's owning tile and packed 10/10/10.
+    ``owner_l`` indexes the tiles of ``rot_flat`` f32[T*9]; ``geo`` f32[4] =
+    (lon_nw, lat_nw, ps_x, ps_y) of the mosaic; ``row_span`` as in
+    `compute_normals_soa` (a slot update's slice of the level)."""
+    lon_nw, lat_nw, ps_x, ps_y = geo[0], geo[1], geo[2], geo[3]
+    s = float(2**level)
+    off = (s - 1.0) / 2.0
+    nx, ny, nz = compute_normals_soa(
+        h_for_normals,
+        (ps_x * s, ps_y * s),
+        raster_point=(0.0, 0.0),
+        model_point=(lon_nw + ps_x * off, lat_nw - ps_y * off),
+        valid=v,
+        quantize=quantize_normals,
+        correct_axes=correct_axes,
+        row_span=row_span,
+    )
+
+    def R(i, j):
+        return rot_flat[3 * i + j :: 9][owner_l]
+
+    wx = R(0, 0) * nx + R(0, 1) * ny + R(0, 2) * nz
+    wy = R(1, 0) * nx + R(1, 1) * ny + R(1, 2) * nz
+    wz = R(2, 0) * nx + R(2, 1) * ny + R(2, 2) * nz
+    # 30-bit codes fit int32 with the sign bit clear.
+    packed = _enc10(wx) | (_enc10(wy) << 10) | (_enc10(wz) << 20)
+    # Invalid texels pack 0 whatever tile the borrow-clamp assigns them, so
+    # a slot update can reproduce their bytes.
+    return torch.where(v, packed, 0)
+
+
 def _device_mosaic_tables(
     heights_raw: torch.Tensor,
     valid: torch.Tensor,
@@ -180,6 +219,7 @@ def _device_mosaic_tables(
     correct_axes: bool,
     exact_tables: bool,
     window_table_min: int,
+    keep_hmax_raw: bool = False,
 ):
     """Derived mosaic tables on ``heights_raw.device`` (port of
     `scene.py:310-479`; the reference's GPU normal compute shaders).
@@ -187,38 +227,12 @@ def _device_mosaic_tables(
     Args: ``heights_raw`` f32[H, W] with zeros outside ``valid``; ``owner``
     int64[H, W] owning-tile index; ``rot_flat`` f32[T*9] row-major tile
     rotations; ``geo`` f32[4] = (lon_nw, lat_nw, ps_x, ps_y).
+    ``keep_hmax_raw`` also returns the undilated max pyramid (``mip_hmax_raw``)
+    that slot updates read.
     """
-    lon_nw, lat_nw, ps_x, ps_y = geo[0], geo[1], geo[2], geo[3]
     poison = torch.tensor(POISON_HEIGHT, dtype=torch.float32, device=heights_raw.device)
     heights_p = torch.where(valid, heights_raw, poison)
-    rot_cols = [rot_flat[k::9] for k in range(9)]  # [T] per matrix entry
-
-    def enc10(c):
-        return torch.round(torch.clamp(0.5 * (c + 1.0), 0.0, 1.0) * 1023.0).to(torch.int32)
-
-    def world_packed(h_for_normals, v, owner_l, level):
-        s = float(2**level)
-        off = (s - 1.0) / 2.0
-        nx, ny, nz = compute_normals_soa(
-            h_for_normals,
-            (ps_x * s, ps_y * s),
-            raster_point=(0.0, 0.0),
-            model_point=(lon_nw + ps_x * off, lat_nw - ps_y * off),
-            valid=v,
-            quantize=quantize_normals,
-            correct_axes=correct_axes,
-        )
-
-        def R(i, j):
-            return rot_cols[3 * i + j][owner_l]
-
-        wx = R(0, 0) * nx + R(0, 1) * ny + R(0, 2) * nz
-        wy = R(1, 0) * nx + R(1, 1) * ny + R(1, 2) * nz
-        wz = R(2, 0) * nx + R(2, 1) * ny + R(2, 2) * nz
-        # 30-bit codes fit int32 with the sign bit clear.
-        packed = enc10(wx) | (enc10(wy) << 10) | (enc10(wz) << 20)
-        # Invalid texels pack 0 whatever tile the borrow-clamp assigns them.
-        return torch.where(v, packed, 0)
+    flags = dict(quantize_normals=quantize_normals, correct_axes=correct_axes)
 
     def pack_rows(h2d, packed2d):
         return torch.stack([h2d.reshape(-1), packed2d.view(torch.float32).reshape(-1)], dim=-1)
@@ -226,7 +240,7 @@ def _device_mosaic_tables(
     def win2d(h2d, packed2d):
         return torch.stack([h2d, packed2d.view(torch.float32)], dim=0)
 
-    packed0 = world_packed(heights_raw, valid, owner, 0)
+    packed0 = world_packed(heights_raw, valid, owner, rot_flat, geo, 0, **flags)
 
     mips = []
     cur = heights_p
@@ -244,13 +258,13 @@ def _device_mosaic_tables(
         h_l, w_l = mh.shape
         v_l = mh > 0.5 * POISON_HEIGHT
         owner_l = owner[::s, ::s][:h_l, :w_l]
-        packed_l = world_packed(torch.where(v_l, mh, 0.0), v_l, owner_l, level)
+        packed_l = world_packed(torch.where(v_l, mh, 0.0), v_l, owner_l, rot_flat, geo, level, **flags)
         mip_attrs.append(pack_rows(mh, packed_l))
         win_tables.append(win2d(mh, packed_l) if mh.numel() > window_table_min else None)
 
     # Dilated max pyramid, folding odd remainder rows/cols into the last
-    # texel's bound.
-    mip_hmax = []
+    # texel's bound; the undilated levels are the raw pyramid.
+    mip_hmax, mip_hmax_raw = [], []
     cur = heights_p
     for mh in mips:
         h2, w2 = mh.shape
@@ -268,6 +282,8 @@ def _device_mosaic_tables(
             em = torch.maximum(ec[0::2], ec[1::2]).amax(dim=1)
             pooled[:, -1] = torch.maximum(pooled[:, -1], em)
         mip_hmax.append(_dilate3(pooled))
+        if keep_hmax_raw:
+            mip_hmax_raw.append(pooled)
         cur = pooled
 
     if exact_tables:
@@ -285,6 +301,7 @@ def _device_mosaic_tables(
         mips=tuple(m.reshape(-1) for m in mips),
         mip_attrs=tuple(mip_attrs),
         mip_hmax=tuple(m.reshape(-1) for m in mip_hmax),
+        mip_hmax_raw=tuple(m.reshape(-1) for m in mip_hmax_raw),
         win_attr_2d=tuple(win_tables),
     )
 
@@ -324,6 +341,24 @@ def _mip_shapes(h_m: int, w_m: int) -> tuple:
     return tuple(shapes)
 
 
+def bound_sphere(lon_nw, lat_nw, h_m, w_m, ps_x, ps_y, hmax: float):
+    """The mosaic's bounding sphere over its geographic extent from 0 to
+    ``hmax`` metres, in float64 on the host: ``(centre f32[3], radius
+    f32)`` as numpy values."""
+    lon_se = lon_nw + ps_x * (w_m - 1)
+    lat_se = lat_nw - ps_y * (h_m - 1)
+    corners = []
+    for lon, lat in ((lon_nw, lat_nw), (lon_se, lat_nw), (lon_nw, lat_se), (lon_se, lat_se)):
+        for hh in (0.0, hmax):
+            lam, phi = np.radians(lon), np.radians(lat)
+            r = 6_371_000.0 + hh
+            corners.append((r * np.cos(phi) * np.cos(lam), r * np.cos(phi) * np.sin(lam), r * np.sin(phi)))
+    corners = np.asarray(corners, np.float64)
+    center = corners.mean(axis=0)
+    radius = float(np.linalg.norm(corners - center, axis=1).max()) * 1.001 + 1.0
+    return np.asarray(center, np.float32), np.float32(radius)
+
+
 def build_mosaic(
     tiles: Sequence[TerrainTile],
     quantize_normals: bool = True,
@@ -331,6 +366,8 @@ def build_mosaic(
     exact_tables: bool = True,
     window_table_min: int = 262_144,
     device=None,
+    canvas: tuple | None = None,
+    keep_hmax_raw: bool = False,
 ) -> TerrainMosaic:
     """Assemble decoded tiles into one stitched mosaic on ``device``.
 
@@ -339,6 +376,13 @@ def build_mosaic(
     finest lattice, texels land on a common grid with seam texels written
     once, and each texel's rotation comes from the tile owning its cell.
     The derived tables are then built on the device.
+
+    ``canvas=(lon_nw, lat_nw, h_m, w_m)`` pins the raster to a frame larger
+    than the tiles' box (texels outside every tile stay poisoned); a tile
+    outside it raises ValueError. The streaming engine builds on such a
+    canvas so that slot updates (`models/mosaic_update.py`) keep static
+    shapes and reproduce this build bit for bit. ``keep_hmax_raw`` keeps the
+    undilated max pyramid (``mip_hmax_raw_flat``) they read.
     """
     from topo_renderer_tpu_torch import resolve_device
 
@@ -351,8 +395,11 @@ def build_mosaic(
         if not np.isclose(t.transform.pixel_scale[1], ps_y, rtol=1e-5):
             raise ValueError("mixed latitude pixel scales are not supported")
     ps_x = min(t.transform.pixel_scale[0] for t in tiles)
-    lon_nw = min(t.transform.to_model((0.0, 0.0))[0] for t in tiles)
-    lat_nw = max(t.transform.to_model((0.0, 0.0))[1] for t in tiles)
+    if canvas is not None:
+        lon_nw, lat_nw = float(canvas[0]), float(canvas[1])
+    else:
+        lon_nw = min(t.transform.to_model((0.0, 0.0))[0] for t in tiles)
+        lat_nw = max(t.transform.to_model((0.0, 0.0))[1] for t in tiles)
 
     native_res = [bool(np.isclose(t.transform.pixel_scale[0], ps_x, rtol=1e-5)) for t in tiles]
     tiles = [
@@ -369,8 +416,14 @@ def build_mosaic(
             raise ValueError("tile grids are not aligned to a common raster")
         offsets.append((ox, oy))
 
-    h_m = max(oy + t.heights.shape[0] for (ox, oy), t in zip(offsets, tiles))
-    w_m = max(ox + t.heights.shape[1] for (ox, oy), t in zip(offsets, tiles))
+    if canvas is not None:
+        h_m, w_m = int(canvas[2]), int(canvas[3])
+        for (ox, oy), t in zip(offsets, tiles):
+            if ox < 0 or oy < 0 or oy + t.heights.shape[0] > h_m or ox + t.heights.shape[1] > w_m:
+                raise ValueError("tile falls outside the pinned canvas")
+    else:
+        h_m = max(oy + t.heights.shape[0] for (ox, oy), t in zip(offsets, tiles))
+        w_m = max(ox + t.heights.shape[1] for (ox, oy), t in zip(offsets, tiles))
 
     heights = np.zeros((h_m, w_m), np.float32)
     valid = np.zeros((h_m, w_m), bool)
@@ -400,18 +453,7 @@ def build_mosaic(
     owner = np.where(owner < 0, 0, owner)
 
     hmax = float(heights[valid].max()) if valid.any() else 0.0
-
-    lon_se = lon_nw + ps_x * (w_m - 1)
-    lat_se = lat_nw - ps_y * (h_m - 1)
-    corners = []
-    for lon, lat in ((lon_nw, lat_nw), (lon_se, lat_nw), (lon_nw, lat_se), (lon_se, lat_se)):
-        for hh in (0.0, hmax):
-            lam, phi = np.radians(lon), np.radians(lat)
-            r = 6_371_000.0 + hh
-            corners.append((r * np.cos(phi) * np.cos(lam), r * np.cos(phi) * np.sin(lam), r * np.sin(phi)))
-    corners = np.asarray(corners, np.float64)
-    center = corners.mean(axis=0)
-    radius = float(np.linalg.norm(corners - center, axis=1).max()) * 1.001 + 1.0
+    center, radius = bound_sphere(lon_nw, lat_nw, h_m, w_m, ps_x, ps_y, hmax)
 
     def dev(a, dtype=None):
         return torch.as_tensor(a, dtype=dtype).to(device)
@@ -428,6 +470,7 @@ def build_mosaic(
         correct_axes=bool(correct_axes),
         exact_tables=bool(exact_tables),
         window_table_min=int(window_table_min),
+        keep_hmax_raw=bool(keep_hmax_raw),
     )
     return TerrainMosaic(
         heights_flat=arrs["heights"],
@@ -438,14 +481,15 @@ def build_mosaic(
         mip_heights_flat=arrs["mips"],
         mip_attr_flat=arrs["mip_attrs"],
         mip_hmax_flat=arrs["mip_hmax"],
+        mip_hmax_raw_flat=arrs["mip_hmax_raw"],
         mip_shapes=_mip_shapes(h_m, w_m),
         win_attr_2d=arrs["win_attr_2d"],
         host=MosaicHostData(valid, cell_tile, rotations, model_point, pixel_scale),
         model_point=dev(model_point),
         pixel_scale=dev(pixel_scale),
         hmax=dev(np.float32(hmax)),
-        bound_center=dev(np.asarray(center, np.float32)),
-        bound_radius=dev(np.float32(radius)),
+        bound_center=dev(center),
+        bound_radius=dev(radius),
         texel_m=_texel_m_hint(ps_y),
     )
 

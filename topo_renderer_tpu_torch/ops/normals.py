@@ -37,6 +37,7 @@ def compute_normals_soa(
     valid: torch.Tensor | None = None,
     quantize: bool = True,
     correct_axes: bool = False,
+    row_span: tuple[int, int] | None = None,
 ):
     """Decoded normal planes ``(nx, ny, nz)`` of ``heights f32[H, W]``.
 
@@ -46,13 +47,20 @@ def compute_normals_soa(
     (`normals.py:62-79`) in float32; doing them on Python floats (float64)
     moves the metric spacing by an ulp and flips packed normal codes. So every
     scalar step here runs on float32 tensors.
+
+    ``row_span=(y0, n)``: ``heights`` holds rows ``y0 .. y0 + H`` of a raster
+    of ``n`` rows. The per-row spacing terms are then computed over all ``n``
+    rows and sliced, so a slice's normals equal the whole raster's bit for
+    bit: PyTorch's CPU ``cos`` runs a vectorized body and a scalar tail, and
+    one row's value may depend on where it sits in the vector.
     """
     dev = heights.device
     h, w = heights.shape[-2], heights.shape[-1]
     ps_x = f32(pixel_scale[0], dev)
     ps_y = f32(pixel_scale[1], dev)
+    y0, n_rows = (0, h) if row_span is None else row_span
 
-    rows = torch.arange(h, dtype=torch.float32, device=dev)
+    rows = torch.arange(n_rows, dtype=torch.float32, device=dev)
     lat_deg = (rows - f32(raster_point[1], dev)) * -ps_y + f32(model_point[1], dev)
 
     x_m = radians(ps_x) * R0
@@ -66,6 +74,7 @@ def compute_normals_soa(
         # (`compute_normals_shader.wgsl:39-40`).
         x_row = x_m.expand(cos_lat.shape)
         y_row = y_m * cos_lat
+    x_row, y_row = x_row[y0 : y0 + h], y_row[y0 : y0 + h]
 
     hp = _pad_edge(heights)
     dhx = hp[..., 1:-1, 2:] - hp[..., 1:-1, :-2]  # h(right) - h(left)

@@ -446,20 +446,6 @@ def _track_raster(mosaic, coeffs, c0, b, t):
     return gx, gy, alt
 
 
-def _window_march_quad(*_args, **_kwargs):
-    """The single-interval quad-track march (`raycast.py:589-702`), reached
-    only through ``guided_kw`` with ``guard_legs=False`` and
-    ``split_brackets=False``; no engine default takes it."""
-    raise NotImplementedError("the single-interval quad-track march: ROADMAP.md §1, after slice 3")
-
-
-def _window_march_quad2(*_args, **_kwargs):
-    """The two-interval quad-track march (`raycast.py:761-871`), reached only
-    through ``guided_kw`` with ``guard_legs=False``; no engine default takes
-    it."""
-    raise NotImplementedError("the two-interval quad-track march: ROADMAP.md §1, after slice 3")
-
-
 def _grouped_bracket_pools(d_lo, d_hi_exact):
     """3x3 bracket pooling split into two distance clusters per texel.
 
@@ -513,57 +499,112 @@ def _at(q, u):
     return q[0] + u * (q[1] + u * q[2])
 
 
+def _quad_leg(mosaic, coeffs, c0, b, t0, t1, t_min, t_max, nw: int, active, *, margin_rel: float,
+              margin_abs: float):
+    """One bracketed leg on a quadratic fit of the ray's raster track.
+
+    The bracket [t_min, t_max] widens by the margins and clips to the shell
+    interval [t0, t1]; the exact track is evaluated at its ends and midpoint
+    only, ``gx, gy, alt`` are fitted as quadratics in u, and ``nw`` uniform
+    steps on the fit each take one corner-row gather (`_cell_h`). Returns
+    ``(found, hit0, u_a, u_b, f_a, f_b, gx_a, gy_a, alt_a, gx_b, gy_b,
+    alt_b, t_lo, span)``: the step bracket [u_a, u_b] of the first crossing
+    with its clearances and track ends, as `_cell_walk_core` takes them.
+    """
+    t_lo = torch.clamp(t_min * (1.0 - margin_rel) - margin_abs, t0, t1)
+    t_hi = torch.clamp(t_max * (1.0 + margin_rel) + margin_abs, t_lo, t1)
+    span = t_hi - t_lo
+    g0 = _track_raster(mosaic, coeffs, c0, b, t_lo)
+    gm = _track_raster(mosaic, coeffs, c0, b, t_lo + 0.5 * span)
+    g1 = _track_raster(mosaic, coeffs, c0, b, t_hi)
+    qx, qy, qa = (_quad(g0[i], gm[i], g1[i]) for i in range(3))
+
+    def f_at(u):
+        return _at(qa, u) - _cell_h(mosaic, _at(qx, u), _at(qy, u))
+
+    du = torch.where(active, 1.0 / nw, 0.0)
+    f_prev = f_at(torch.zeros_like(t_lo))
+    hit0 = active & (f_prev <= 0.0)
+    found, u_a, u_b = hit0, torch.zeros_like(t_lo), torch.where(hit0, 0.0, 1.0)
+    f_a = f_b = f_prev
+    for k in range(1, nw + 1):
+        u_k = du * k
+        f_k = f_at(u_k)
+        crossing = active & (~found) & (f_prev > 0.0) & (f_k <= 0.0)
+        u_a = torch.where(crossing, u_k - du, u_a)
+        u_b = torch.where(crossing, u_k, u_b)
+        # The walk needs f(u_a) > 0 >= f(u_b): carry them out.
+        f_a = torch.where(crossing, f_prev, f_a)
+        f_b = torch.where(crossing, f_k, f_b)
+        found, f_prev = found | crossing, f_k
+    return (found, hit0, u_a, u_b, f_a, f_b,
+            _at(qx, u_a), _at(qy, u_a), _at(qa, u_a), _at(qx, u_b), _at(qy, u_b), _at(qa, u_b),
+            t_lo, span)
+
+
+def _walk_leg(mosaic, leg, n_cells: int):
+    """``(hit, t_hit)`` of a leg's result: the analytic cell walk inside its
+    step bracket (linearized between the bracket's fitted ends)."""
+    found, hit0, u_a, u_b, f_a, f_b = leg[:6]
+    t_lo, span = leg[12], leg[13]
+    active = found & (~hit0) & (u_b > u_a)
+    v = _cell_walk_core(mosaic, leg[6:12], f_a, f_b, active, n_cells=n_cells)
+    u_star = torch.where(active, u_a + v * (u_b - u_a), torch.where(hit0, 0.0, u_b))
+    return found, t_lo + u_star * span
+
+
+def _window_march_quad(mosaic, eye, eye_host, dirs, t_min, t_max, any_hit, *, n_window: int, n_cells: int,
+                       margin_rel: float, margin_abs: float):
+    """Bracketed exact march on one quadratic track fit: ``n_window``
+    steps over the pixel's pooled bracket [t_min, t_max], then the cell
+    walk (`raycast.py:589-702`; its TPU ``lane_shuffle`` is not ported)."""
+    b, c0, t0, t1 = _window_interval(mosaic, eye, dirs)
+    coeffs = track_coeffs(mosaic, eye, eye_host, dirs)
+    leg = _quad_leg(mosaic, coeffs, c0, b, t0, t1, t_min, t_max, n_window, any_hit, margin_rel=margin_rel,
+                    margin_abs=margin_abs)
+    return _walk_leg(mosaic, leg, n_cells)
+
+
+def _window_march_quad2(mosaic, eye, eye_host, dirs, legs, any_hit, *, n_window: int, n_cells: int,
+                        margin_rel: float, margin_abs: float):
+    """Two-interval variant of `_window_march_quad` (`raycast.py:761-871`).
+
+    ``legs`` is ``((tA_lo, tA_hi), (tB_lo, tB_hi))``, the split pooled
+    cluster brackets of `_grouped_bracket_pools` (B a phase-shifted copy of
+    A where the neighbourhood has one cluster). Each leg takes its own
+    track fit and ``max(n_window // 2, 2)`` steps; the leg whose bracket
+    STARTS first wins (A on ties), and one cell walk refines it.
+    """
+    b, c0, t0, t1 = _window_interval(mosaic, eye, dirs)
+    coeffs = track_coeffs(mosaic, eye, eye_host, dirs)
+    nw = max(n_window // 2, 2)
+    leg_a, leg_b = (_quad_leg(mosaic, coeffs, c0, b, t0, t1, lo, hi, nw, any_hit, margin_rel=margin_rel,
+                              margin_abs=margin_abs) for lo, hi in legs)
+    start_a = leg_a[12] + leg_a[2] * leg_a[13]  # t_lo + u_a * span
+    start_b = leg_b[12] + leg_b[2] * leg_b[13]
+    use_a = leg_a[0] & ((~leg_b[0]) | (start_a <= start_b))
+    won = tuple(torch.where(use_a, x, y) for x, y in zip(leg_a, leg_b))
+    return _walk_leg(mosaic, (leg_a[0] | leg_b[0],) + won[1:], n_cells)
+
+
 def _window_march_quad3(mosaic, eye, eye_host, dirs, legs, any_hit, *, n_cells: int, margin_rel: float,
                         margin_abs: float):
     """Bracketed exact march over several legs, each on a quadratic fit of
-    the ray's raster track.
+    the ray's raster track (`_quad_leg`).
 
     ``legs`` is a sequence of ``(t_lo, t_hi, nw)``: per-pixel intervals with
     a static step count each (`march_guided_panorama`: the two pooled
     cluster legs and the pixel's own-texel sure leg, or one union leg and
-    the own leg). Each leg evaluates the exact track at its ends and
-    midpoint only, fits ``gx, gy, alt`` as quadratics in u, and steps ``nw``
-    times on the fit, one corner-row gather per step. The leg whose bracket
-    ENDS first wins (the tighter bracket for the same crossing, the earlier
-    one for distinct crossings), and one analytic cell walk refines it.
+    the own leg). The leg whose bracket ENDS first wins (the tighter
+    bracket for the same crossing, the earlier one for distinct crossings),
+    and one analytic cell walk refines it.
     """
     b, c0, t0, t1 = _window_interval(mosaic, eye, dirs)
     coeffs = track_coeffs(mosaic, eye, eye_host, dirs)
-
-    def leg(t_min, t_max, nw):
-        t_lo = torch.clamp(t_min * (1.0 - margin_rel) - margin_abs, t0, t1)
-        t_hi = torch.clamp(t_max * (1.0 + margin_rel) + margin_abs, t_lo, t1)
-        span = t_hi - t_lo
-        g0 = _track_raster(mosaic, coeffs, c0, b, t_lo)
-        gm = _track_raster(mosaic, coeffs, c0, b, t_lo + 0.5 * span)
-        g1 = _track_raster(mosaic, coeffs, c0, b, t_hi)
-        qx, qy, qa = (_quad(g0[i], gm[i], g1[i]) for i in range(3))
-
-        def f_at(u):
-            return _at(qa, u) - _cell_h(mosaic, _at(qx, u), _at(qy, u))
-
-        du = torch.where(any_hit, 1.0 / nw, 0.0)
-        f_prev = f_at(torch.zeros_like(t_lo))
-        hit0 = any_hit & (f_prev <= 0.0)
-        found, u_a, u_b = hit0, torch.zeros_like(t_lo), torch.where(hit0, 0.0, 1.0)
-        f_a = f_b = f_prev
-        for k in range(1, nw + 1):
-            u_k = du * k
-            f_k = f_at(u_k)
-            crossing = any_hit & (~found) & (f_prev > 0.0) & (f_k <= 0.0)
-            u_a = torch.where(crossing, u_k - du, u_a)
-            u_b = torch.where(crossing, u_k, u_b)
-            # The walk needs f(u_a) > 0 >= f(u_b): carry them out.
-            f_a = torch.where(crossing, f_prev, f_a)
-            f_b = torch.where(crossing, f_k, f_b)
-            found, f_prev = found | crossing, f_k
-        return (found, hit0, u_a, u_b, f_a, f_b,
-                _at(qx, u_a), _at(qy, u_a), _at(qa, u_a), _at(qx, u_b), _at(qy, u_b), _at(qa, u_b),
-                t_lo, span)
-
     cur = None
     for t_lo_leg, t_hi_leg, nw in legs:
-        o = leg(t_lo_leg, t_hi_leg, nw)
+        o = _quad_leg(mosaic, coeffs, c0, b, t0, t1, t_lo_leg, t_hi_leg, nw, any_hit, margin_rel=margin_rel,
+                      margin_abs=margin_abs)
         o_end = o[12] + o[3] * o[13]  # t_lo + u_b * span
         if cur is None:
             cur, cur_end = o, o_end
@@ -571,13 +612,7 @@ def _window_march_quad3(mosaic, eye, eye_host, dirs, legs, any_hit, *, n_cells: 
         use_new = o[0] & ((~cur[0]) | (o_end < cur_end))
         cur = tuple(torch.where(use_new, n, c) for n, c in zip(o, cur))
         cur_end = torch.where(use_new, o_end, cur_end)
-
-    found, hit0, u_a, u_b, f_a, f_b = cur[:6]
-    t_lo, span = cur[12], cur[13]
-    active = found & (~hit0) & (u_b > u_a)
-    v = _cell_walk_core(mosaic, cur[6:12], f_a, f_b, active, n_cells=n_cells)
-    u_star = torch.where(active, u_a + v * (u_b - u_a), torch.where(hit0, 0.0, u_b))
-    return found, t_lo + u_star * span
+    return _walk_leg(mosaic, cur, n_cells)
 
 
 def _window_march(mosaic, eye, dirs, t_min, t_max, any_hit, *, n_window: int, n_refine: int,
@@ -717,10 +752,11 @@ def march_guided_panorama(
     `guided_march_rounds`): the two split pooled cluster legs of 3 steps
     and the pixel's own-texel sure leg [d_me, d_hi] of 2 steps. With
     ``split_brackets=False`` one union pooled leg of ``n_window`` steps and
-    the own leg (the engine's interactive rung). Mosaics without a cell
-    table take `_window_march` over the pooled bracket; ``guard_legs=False``
-    with a cell table is not ported (`_window_march_quad2`,
-    `_window_march_quad`).
+    the own leg (the engine's interactive rung). ``guard_legs=False`` drops
+    the own leg: the split cluster legs of ``n_window // 2`` steps each
+    (`_window_march_quad2`), or with ``split_brackets=False`` one pooled
+    bracket of ``n_window`` steps (`_window_march_quad`). Mosaics without a
+    cell table take `_window_march` over the pooled bracket.
 
     ``eye`` on the host keeps the march free of host syncs (`_eye_on`).
     ``n_refine`` serves only the `_window_march` branch.
@@ -767,40 +803,42 @@ def march_guided_panorama(
     gy = (half_d - (el - el_c)) / win_d * hp - 0.5
     texel = (index_i32(torch.round(gy), hp - 1).long() * wp + index_i32(torch.round(gx), wp - 1).long())
 
-    if use_quad and guard_legs:
+    quad_kw = dict(n_cells=n_cells, margin_rel=margin_rel, margin_abs=margin_abs)
+    if use_quad and (guard_legs or split_brackets):
         m, _, a_max, b_min, b_max = _grouped_bracket_pools(d_lo, d_hi)
         uni_hi = torch.maximum(a_max, b_max)
         uni_hi = torch.where(bound_only | (uni_hi <= 0.0), FAR, uni_hi)
-        # The own-texel sure leg; where the own texel is sky, the pooled
-        # near start (duplicate coverage, never a new hit class).
-        own0 = torch.where(pre["hit"], pre["d_me"], m)
-        own1 = torch.where(pre["hit"], pre["d_hi"], m)
-        if not split_brackets:
-            rows = torch.stack([m, uni_hi, own0, own1], dim=-1).reshape(-1, 4)[texel]
-            legs = ((rows[..., 0], rows[..., 1], n_window), (rows[..., 2], rows[..., 3], nw_guard))
-        else:
+        nw_leg = max(n_window // 2, 2)
+        if split_brackets:
             b_max_eff = torch.where(bound_only, FAR, b_max)
             split = (a_max > 0.0) & (b_min < BIG) & (b_max_eff > b_min)
-            nw_leg = max(n_window // 2, 2)
             t_a1 = torch.where(split, a_max, uni_hi)
             # Merged mode: leg B re-marches the union half a step out of
             # phase with leg A.
             t_b0 = torch.where(split, torch.maximum(b_min, a_max), m + (uni_hi - m) * (0.5 / nw_leg))
             t_b1 = torch.where(split, torch.maximum(b_max_eff, t_b0), uni_hi)
-            rows = torch.stack([m, t_a1, t_b0, t_b1, own0, own1], dim=-1).reshape(-1, 6)[texel]
-            legs = (
-                (rows[..., 0], rows[..., 1], nw_leg),
-                (rows[..., 2], rows[..., 3], nw_leg if nw_far is None else max(nw_far, 1)),
-                (rows[..., 4], rows[..., 5], nw_guard),
-            )
-        return _window_march_quad3(mosaic, eye, eye_host, dirs, legs, rows[..., 0] < BIG, n_cells=n_cells,
-                                   margin_rel=margin_rel, margin_abs=margin_abs)
-    if use_quad:
-        return _window_march_quad2() if split_brackets else _window_march_quad()
+            cols = [m, t_a1, t_b0, t_b1]
+        else:
+            cols = [m, uni_hi]
+        if not guard_legs:
+            rows = torch.stack(cols, dim=-1).reshape(-1, 4)[texel]
+            legs = ((rows[..., 0], rows[..., 1]), (rows[..., 2], rows[..., 3]))
+            return _window_march_quad2(mosaic, eye, eye_host, dirs, legs, rows[..., 0] < BIG, n_window=n_window,
+                                       **quad_kw)
+        # The own-texel sure leg; where the own texel is sky, the pooled
+        # near start (duplicate coverage, never a new hit class).
+        cols += [torch.where(pre["hit"], pre["d_me"], m), torch.where(pre["hit"], pre["d_hi"], m)]
+        rows = torch.stack(cols, dim=-1).reshape(-1, len(cols))[texel]
+        steps = [nw_leg, nw_leg if nw_far is None else max(nw_far, 1)] if split_brackets else [n_window]
+        legs = tuple((rows[..., 2 * i], rows[..., 2 * i + 1], nw) for i, nw in enumerate(steps + [nw_guard]))
+        return _window_march_quad3(mosaic, eye, eye_host, dirs, legs, rows[..., 0] < BIG, **quad_kw)
 
     t_max_img = _pool3(d_hi, torch.maximum)
     t_max_img = torch.where(bound_only | (t_max_img <= 0.0), FAR, t_max_img)
     rows = torch.stack([_pool3(d_lo, torch.minimum), t_max_img], dim=-1).reshape(-1, 2)[texel]
+    if use_quad:
+        return _window_march_quad(mosaic, eye, eye_host, dirs, rows[..., 0], rows[..., 1], rows[..., 0] < BIG,
+                                  n_window=n_window, **quad_kw)
     return _window_march(mosaic, eye, dirs, rows[..., 0], rows[..., 1], rows[..., 0] < BIG, n_window=n_window,
                          n_refine=n_refine, margin_rel=margin_rel, margin_abs=margin_abs)
 

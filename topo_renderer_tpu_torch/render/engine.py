@@ -2,7 +2,8 @@
 
 Port of `topo_renderer_tpu/render/engine.py` on one device: the loaded tile
 set and per-tile peak lists (`render_engine.rs:34-44`), a mosaic rebuilt on
-the engine's device when tiles change, ``render_panorama`` with its
+the engine's device when tiles change (or, with ``streaming=True``, updated
+one tile slot at a time), ``render_panorama`` with its
 peak-label pass, ``render_batch`` for many viewpoints without labels, and
 ``render``, the perspective frame (triangle-exact, or ``fast=True`` for the
 interactive warp), with its label pass and the one-transfer wire
@@ -29,8 +30,19 @@ from topo_renderer_tpu_torch import resolve_device
 from topo_renderer_tpu_torch.data.coordinate_transform import CoordinateTransform
 from topo_renderer_tpu_torch.geo import GeoLocation
 from topo_renderer_tpu_torch.models.camera import Camera
-from topo_renderer_tpu_torch.models.scene import TerrainMosaic, TerrainTile, build_mosaic
-from topo_renderer_tpu_torch.models.uniforms import PeakInstance
+from topo_renderer_tpu_torch.models.mosaic_update import (
+    apply_slot_update,
+    attr_slice_geometry,
+    streaming_canvas_dim,
+)
+from topo_renderer_tpu_torch.models.scene import (
+    POISON_HEIGHT,
+    TerrainMosaic,
+    TerrainTile,
+    bound_sphere,
+    build_mosaic,
+)
+from topo_renderer_tpu_torch.models.uniforms import PeakInstance, normal_to_world_rotation
 from topo_renderer_tpu_torch.ops import shading
 from topo_renderer_tpu_torch.ops.geometry import f32, to_device
 from topo_renderer_tpu_torch.ops.labels import peak_visibility, peak_visibility_panorama
@@ -98,11 +110,18 @@ class RenderEngine:
 
     def __init__(self, device=None, streaming: bool = False, geo_mesh=None):
         """``device``: where the mosaic lives and frames render; None means
-        the CUDA device (and raises without one). ``streaming`` (incremental
-        slot updates) and ``geo_mesh`` (multi-device tables) belong to later
-        slices of the port and raise NotImplementedError."""
-        if streaming:
-            raise NotImplementedError("streaming slot updates: ROADMAP.md slice 5")
+        the CUDA device (and raises without one).
+
+        ``streaming``: tile changes update the mosaic one slot at a time (the
+        reference's `add_terrain`/`unload_terrain` touch one tile's buffers,
+        `terrain_renderer.rs:173-350,361-363`). The mosaic lives on a pinned
+        canvas, the tiles' box plus a one-tile margin, and a tile change
+        inside it runs `models/mosaic_update.apply_slot_update`; a tile
+        outside it, or off its grid, rebuilds on a fresh canvas. The canvas
+        holds at most 64 tiles, as the JAX package's does.
+
+        ``geo_mesh`` (multi-device tables) belongs to a later slice of the
+        port and raises NotImplementedError."""
         if geo_mesh is not None:
             raise NotImplementedError("geo-sharded tables: ROADMAP.md slice 7")
         self.device = resolve_device(device)
@@ -110,6 +129,13 @@ class RenderEngine:
         self._peaks: dict[GeoLocation, list[PeakInstance]] = {}
         self._mosaic: TerrainMosaic | None = None
         self._dirty = True
+        self._streaming = bool(streaming)
+        self._window_table_min = 262_144  # build_mosaic's default; tests lower it
+        self._canvas = None  # (lon_nw, lat_nw, h_m, w_m, ps_x, ps_y)
+        self._slots: dict[GeoLocation, tuple] = {}  # loc -> (slot, oy, ox, th, tw)
+        self._rot_cap = 64
+        self._rotations = np.zeros((self._rot_cap, 3, 3), np.float32)
+        self._pending: list[tuple] = []  # queued slot updates
         self._label_lock = threading.Lock()
         self._peaks_gen = 0  # bumped on peak-set changes; part of memo keys
         self._layout_memo: OrderedDict = OrderedDict()
@@ -120,7 +146,22 @@ class RenderEngine:
     def add_terrain(
         self, location: GeoLocation, heights: np.ndarray, transform: CoordinateTransform
     ) -> None:
-        self._tiles[location] = TerrainTile(location, np.asarray(heights, np.float32), transform)
+        tile = TerrainTile(location, np.asarray(heights, np.float32), transform)
+        self._tiles[location] = tile
+        if self._streaming and not self._dirty and self._mosaic is not None:
+            if self._queue_streaming_op("add", location, tile):
+                return
+        self._dirty = True
+
+    def unload_terrain(self, location: GeoLocation) -> None:
+        tile = self._tiles.pop(location, None)
+        if self._peaks.pop(location, None) is not None:
+            self._peaks_gen += 1
+        if tile is None:
+            return
+        if self._streaming and not self._dirty and self._mosaic is not None:
+            if location in self._slots and self._queue_streaming_op("remove", location, tile):
+                return
         self._dirty = True
 
     def add_peaks(self, location: GeoLocation, peaks: Sequence[PeakInstance]) -> None:
@@ -130,15 +171,185 @@ class RenderEngine:
         self._peaks_gen += 1
 
     @property
+    def loaded_locations(self) -> set[GeoLocation]:
+        return set(self._tiles.keys())
+
+    # ---- streaming (slot updates) ----------------------------------------
+
+    def _tile_grid_offset(self, tile: TerrainTile):
+        """(oy, ox) of the tile on the current canvas, or None on any grid
+        mismatch (pixel scale, alignment, bounds)."""
+        lon_nw, lat_nw, h_m, w_m, ps_x, ps_y = self._canvas
+        t = tile.transform
+        if not (np.isclose(t.pixel_scale[0], ps_x, rtol=1e-5) and np.isclose(t.pixel_scale[1], ps_y, rtol=1e-5)):
+            return None
+        lon0, lat0 = t.to_model((0.0, 0.0))
+        fx = (lon0 - lon_nw) / ps_x
+        fy = (lat_nw - lat0) / ps_y
+        ox, oy = round(fx), round(fy)
+        if abs(fx - ox) > 0.02 or abs(fy - oy) > 0.02:
+            return None
+        th, tw = tile.heights.shape
+        if ox < 0 or oy < 0 or oy + th > h_m or ox + tw > w_m:
+            return None
+        return oy, ox
+
+    def _queue_streaming_op(self, op: str, location: GeoLocation, tile: TerrainTile) -> bool:
+        """Queue a slot update; False where the tile needs a full rebuild
+        (no canvas, off the canvas's grid, or no free slot)."""
+        if self._canvas is None:
+            return False
+        if op == "add":
+            off = self._tile_grid_offset(tile)
+            if off is None:
+                return False
+            if location in self._slots:
+                slot = self._slots[location][0]
+            else:
+                used = {s for s, *_ in self._slots.values()}
+                slot = next(i for i in range(self._rot_cap + 1) if i not in used)
+                if slot >= self._rot_cap:
+                    return False
+            rec = (slot, *off, *tile.heights.shape)
+            self._slots[location] = rec
+            self._pending.append(("add", location, rec))
+            return True
+        self._pending.append(("remove", location, self._slots.pop(location)))
+        return True
+
+    def _assemble_region(self, oy, ox, th, tw):
+        """The (heights, cell owners) of one canvas region from the current
+        tile set, in the full build's order, so the updated tables match a
+        fresh build on the same canvas at shared seam texels too."""
+        blk = np.full((th, tw), np.float32(POISON_HEIGHT), np.float32)
+        cells = np.full((th, tw), -1, np.int32)
+        for loc in sorted(self._slots.keys()):
+            slot, ty, tx, tth, ttw = self._slots[loc]
+            tile = self._tiles.get(loc)
+            if tile is None:
+                continue
+            y0, y1 = max(oy, ty), min(oy + th, ty + tth)
+            x0, x1 = max(ox, tx), min(ox + tw, tx + ttw)
+            if y0 < y1 and x0 < x1:
+                blk[y0 - oy : y1 - oy, x0 - ox : x1 - ox] = tile.heights[y0 - ty : y1 - ty, x0 - tx : x1 - tx]
+            cy1, cx1 = min(oy + th, ty + tth - 1), min(ox + tw, tx + ttw - 1)
+            if y0 < cy1 and x0 < cx1:
+                cells[y0 - oy : cy1 - oy, x0 - ox : cx1 - ox] = slot
+        return blk, cells
+
+    def _apply_pending(self):
+        """Run the queued slot updates on the device. The host copies of the
+        valid mask, the cell owners and the rotations follow every op; the
+        bounding sphere's refresh reads ``hmax`` back once."""
+        lon_nw, lat_nw, h_m, w_m, ps_x, ps_y = self._canvas
+        host = self._mosaic.host
+        dev = self.device
+        geo = f32(np.asarray([lon_nw, lat_nw, ps_x, ps_y], np.float32), dev)
+        while self._pending:
+            op, location, (slot, oy, ox, th, tw) = self._pending.pop(0)
+            if op == "add":
+                tile = self._tiles.get(location)
+                if tile is None:
+                    # Added, then unloaded before any render: the queued
+                    # remove rebuilds the region.
+                    continue
+                mp = tile.transform.model_point
+                self._rotations[slot] = normal_to_world_rotation(mp[0], mp[1])[:3, :3].numpy()
+            blk, cells = self._assemble_region(oy, ox, th, tw)
+            host.valid[oy : oy + th, ox : ox + tw] = blk > 0.5 * np.float32(POISON_HEIGHT)
+            host.cell_tile[oy : oy + th, ox : ox + tw] = cells
+            # The full capacity: after unloads, cell owners may name slots
+            # above the tile count.
+            host.tile_rot = self._rotations.copy()
+
+            # Owner windows per level, slice by slice from the host owners
+            # (the whole owner map would be a canvas-sized array per op).
+            slices = []
+            for lv, sy, sx, sh, sw in attr_slice_geometry(oy, ox, th, tw, (h_m, w_m), self._mosaic.mip_shapes):
+                s = 1 << lv
+                ys = np.minimum((sy + np.arange(sh)) * s, h_m - 2)
+                xs = np.minimum((sx + np.arange(sw)) * s, w_m - 2)
+                owners = host.cell_tile[ys[:, None], xs[None, :]]
+                slices.append(to_device(torch.from_numpy(np.where(owners < 0, 0, owners).astype(np.int64)), dev))
+            self._mosaic = apply_slot_update(
+                self._mosaic, to_device(torch.from_numpy(blk), dev), oy, ox, tuple(slices),
+                f32(self._rotations.reshape(-1), dev), geo, th=th, tw=tw,
+            )
+        self._refresh_bound_sphere()
+
+    def _refresh_bound_sphere(self):
+        """The bounding sphere of the canvas at the new ``hmax``: one scalar
+        read from the device, then the build's float64 formula."""
+        lon_nw, lat_nw, h_m, w_m, ps_x, ps_y = self._canvas
+        hmax = float(self._mosaic.hmax)
+        center, radius = bound_sphere(lon_nw, lat_nw, h_m, w_m, ps_x, ps_y, hmax)
+        self._mosaic = dataclasses.replace(
+            self._mosaic, bound_center=f32(center, self.device), bound_radius=f32(radius, self.device)
+        )
+
+    def _full_streaming_rebuild(self):
+        """Full build on a fresh pinned canvas: the tiles' box plus a
+        one-tile margin on every side, each dimension rounded up so that
+        the mip chain halves exactly. Slot ids are the build's tile indices
+        (sorted order)."""
+        order = sorted(self._tiles.keys())
+        if len(order) > self._rot_cap:
+            raise ValueError(
+                f"the streaming canvas holds at most {self._rot_cap} tile slots, not {len(order)} tiles"
+            )
+        tiles = [self._tiles[k] for k in order]
+        ps_x = min(t.transform.pixel_scale[0] for t in tiles)
+        ps_y = tiles[0].transform.pixel_scale[1]
+        th, tw = tiles[0].heights.shape
+        lon_min = min(t.transform.to_model((0.0, 0.0))[0] for t in tiles)
+        lat_max = max(t.transform.to_model((0.0, 0.0))[1] for t in tiles)
+        lon_max = max(t.transform.to_model((0.0, 0.0))[0] + ps_x * (t.heights.shape[1] - 1) for t in tiles)
+        lat_min = min(t.transform.to_model((0.0, 0.0))[1] - ps_y * (t.heights.shape[0] - 1) for t in tiles)
+        margin_y, margin_x = th - 1, tw - 1
+        lon_nw = lon_min - ps_x * margin_x
+        lat_nw = lat_max + ps_y * margin_y
+        need_h = int(round((lat_nw - lat_min) / ps_y)) + 1 + margin_y
+        need_w = int(round((lon_max - lon_nw) / ps_x)) + 1 + margin_x
+        h_m, w_m = streaming_canvas_dim(need_h), streaming_canvas_dim(need_w)
+        self._canvas = (lon_nw, lat_nw, h_m, w_m, ps_x, ps_y)
+        self._mosaic = None  # free the old tables before building anew
+        self._mosaic = build_mosaic(
+            tiles, canvas=(lon_nw, lat_nw, h_m, w_m), keep_hmax_raw=True,
+            window_table_min=self._window_table_min, device=self.device,
+        )
+        self._slots = {}
+        self._rotations = np.zeros((self._rot_cap, 3, 3), np.float32)
+        for i, loc in enumerate(order):
+            t = self._tiles[loc]
+            off = self._tile_grid_offset(t)
+            if off is None:
+                raise RuntimeError("tile misaligned with its own canvas")
+            self._slots[loc] = (i, *off, *t.heights.shape)
+            mp = t.transform.model_point
+            self._rotations[i] = normal_to_world_rotation(mp[0], mp[1])[:3, :3].numpy()
+
+    @property
     def mosaic(self) -> TerrainMosaic:
-        """The stitched mosaic, rebuilt in full after a tile change."""
+        """The stitched mosaic: rebuilt in full after a tile change, or, in
+        a streaming engine, with the queued slot updates applied."""
         if self._dirty or self._mosaic is None:
             if not self._tiles:
                 raise RuntimeError("no terrain loaded")
-            self._mosaic = None  # free the old tables before building anew
-            order = sorted(self._tiles.keys())
-            self._mosaic = build_mosaic([self._tiles[k] for k in order], device=self.device)
+            self._pending.clear()
+            native = len({(round(t.transform.pixel_scale[0], 9), t.heights.shape)
+                          for t in self._tiles.values()}) == 1
+            if self._streaming and native:
+                self._full_streaming_rebuild()
+            else:
+                # Mixed resolutions or shapes: a plain build, no slot updates.
+                self._canvas = None
+                self._slots = {}
+                self._mosaic = None  # free the old tables before building anew
+                order = sorted(self._tiles.keys())
+                self._mosaic = build_mosaic([self._tiles[k] for k in order], device=self.device)
             self._dirty = False
+        elif self._pending:
+            self._apply_pending()
         return self._mosaic
 
     def height_at(self, coord) -> float | None:
