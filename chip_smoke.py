@@ -61,7 +61,22 @@ Phases (any failure exits non-zero):
         for bit (its ms is printed), and a fast frame (K1 1, K2 1) and an
         exact frame (K1 2) after the updates equal the fresh build's frames
         bit for bit with 0 host syncs; then the 15E column leaves the canvas
-        and must rebuild in full (ms), and the phase's peak device memory.
+        and must rebuild in full (ms), and the phase's peak device memory;
+     h. the host runtime: the streaming scene's 9 tiles written as GeoTIFFs
+        with ~300 peaks each, served by the port's `BackendServer` on
+        127.0.0.1; per tile the fetch, the native and the Python decode (each
+        bit-equal to the array written) and `fetch_terrain`; then the CLI
+        (`frontends/cli.py::main`, ``--device cuda``): a 4096 x 1024 fast
+        atmospheric panorama (K1 1, K2 1) and the 800 x 450 exact frame (K1
+        2, K2 0), each with its stages on the host clock (`Application()`,
+        time to first terrain, the fixed 2 s pump, the mosaic build, the
+        frame, `save_image`), the app engine's tables equal to a fresh build
+        in its slot order and the PNG equal to a fresh engine's render of
+        the same arrays, peaks and camera (labels too); then
+        `Application.run` from cold with W held (fast frames from the first
+        tile on): steps, full builds and slot updates until all 9 tiles are
+        in, ms per step, K1/K2 per step (1/1), and the peak device memory
+        of the CLI calls and of the app run.
      Small scenes rendered on the card and on the CPU (plain versions) must
      agree, for the fast preset, the fallback's spec, the fast frame
      (level, 1.1 rad down and across azimuth ±pi) and the exact frame at
@@ -1247,6 +1262,29 @@ def mosaic_tables(m):
     return {k: v.contiguous().view(torch.int32) for k, v in out.items()}
 
 
+def slot_order_build(engine):
+    """A fresh build of the engine's tiles on its canvas, listed in its slot
+    order: the tile of slot 0 lends its rotation to valid texels without an
+    owning cell, in both the build and the update."""
+    from topo_renderer_tpu_torch.models.scene import build_mosaic
+
+    order = sorted(engine._slots, key=lambda loc: engine._slots[loc][0])
+    return build_mosaic([engine._tiles[loc] for loc in order], canvas=engine._canvas[:4], keep_hmax_raw=True,
+                        window_table_min=engine._window_table_min, device=engine.device)
+
+
+def check_tables(engine, fresh, what):
+    """The engine's tables equal those of `fresh` bit for bit; returns how
+    many there are."""
+    import torch
+
+    got, want = mosaic_tables(engine.mosaic), mosaic_tables(fresh)
+    differ = [k for k in want if got[k].shape != want[k].shape or not torch.equal(got[k], want[k])]
+    if got.keys() != want.keys() or differ or not np.array_equal(engine.mosaic.host.valid, fresh.host.valid):
+        raise AssertionError(f"{what}: the engine's tables differ from a fresh build in slot order: {differ}")
+    return len(want)
+
+
 def update_breakdown(engine, lat, lon):
     """Where one unload and one re-add of the tile at (lat, lon) spend
     their host time: the region assembly (numpy), the queued device work
@@ -1310,7 +1348,6 @@ def streaming_path():
 
     from topo_renderer_tpu_torch.geo import GeoLocation
     from topo_renderer_tpu_torch.models.mosaic_update import streaming_canvas_dim
-    from topo_renderer_tpu_torch.models.scene import build_mosaic
     from topo_renderer_tpu_torch.ops.raycast import render_perspective, render_perspective_fast
     from topo_renderer_tpu_torch.render.engine import RenderEngine
 
@@ -1345,23 +1382,13 @@ def streaming_path():
     if engine._pending or engine._dirty:
         raise AssertionError("streaming: updates left pending")
 
-    # A fresh build of the same tiles on the same canvas, listed in slot
-    # order (the tile of slot 0 lends its rotation to valid texels without
-    # an owning cell, in both the build and the update).
-    order = sorted(engine._slots, key=lambda loc: engine._slots[loc][0])
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
-    fresh = build_mosaic([engine._tiles[loc] for loc in order], canvas=engine._canvas[:4], keep_hmax_raw=True,
-                         device=engine.device)
+    fresh = slot_order_build(engine)
     torch.cuda.synchronize()
     fresh_s = time.perf_counter() - t0
     memory["fresh build beside the engine's"] = (torch.cuda.max_memory_allocated(), torch.cuda.memory_allocated())
-    got, want = mosaic_tables(engine.mosaic), mosaic_tables(fresh)
-    differ = [k for k in want if got[k].shape != want[k].shape or not torch.equal(got[k], want[k])]
-    if got.keys() != want.keys() or differ or not np.array_equal(engine.mosaic.host.valid, fresh.host.valid):
-        raise AssertionError(f"streaming: updated tables differ from a fresh build: {differ}")
-    n_tables = len(want)
-    del got, want  # views: they would keep both canvases alive
+    n_tables = check_tables(engine, fresh, "streaming")
     log(f"streaming (phase 4g): 3x3 tiles of {TEXELS}^2 at {STREAM_LAT}-{STREAM_LAT + 2}N, "
         f"{STREAM_LON}-{STREAM_LON + 2}E on a {engine._canvas[2]}x{engine._canvas[3]} canvas; first build "
         f"{first_s * 1e3:.1f} ms host clock; one degree east = 6 slot updates in {update_ms:.1f} ms "
@@ -1426,6 +1453,410 @@ def streaming_path():
     del engine, m
     torch.cuda.empty_cache()
     return counts
+
+
+# ---- phase 4h: the host runtime, backend to CLI image ----------------------
+
+PEAKS_PER_TILE = 300
+CLI_PANORAMA = (4096, 1024, 512)  # width, height, steps of `topo-render-torch panorama --fast`
+CLI_FRAME = (FAST_W, FAST_H, 1024)  # of `topo-render-torch render` (the exact frame)
+# W held at the reference's speed 1.0 moves 0.1 m per microsecond of frame
+# time, ~5 km per 50 ms step; 0.01 keeps the flight inside the tile set.
+APP_CAMERA_SPEED = 0.01
+APP_STEPS_AFTER = 10  # steps timed once every tile is in
+APP_TIMEOUT_S = 120.0
+
+
+class StageClock:
+    """Host-clock spans of the methods and functions it wraps, by key, and
+    the last value each returned; `restore` puts the originals back."""
+
+    def __init__(self):
+        self.spans, self.last, self._saved = {}, {}, []
+
+    def wrap(self, owner, name, key, sync=False):
+        import functools
+
+        fn = getattr(owner, name)
+
+        @functools.wraps(fn)
+        def timed(*args, **kw):
+            t0 = time.perf_counter()
+            try:
+                out = self.last[key] = fn(*args, **kw)
+                if sync:
+                    import torch
+
+                    torch.cuda.synchronize()
+                return out
+            finally:
+                self.spans.setdefault(key, []).append((t0, time.perf_counter()))
+
+        setattr(owner, name, timed)
+        self._saved.append((owner, name, fn))
+
+    def ms(self, key):
+        return sum(1e3 * (b - a) for a, b in self.spans.get(key, ()))
+
+    def restore(self):
+        while self._saved:
+            setattr(*self._saved.pop())
+
+
+def write_backend_data(root, lat0, lon0):
+    """The 3 x 3 COP-90-shaped tiles from (lat0, lon0) as GeoTIFFs written
+    by the port's `write_geotiff`, and a peaks CSV per tile with peaks on
+    the terrain, laid out as the backend serves them. Returns the written
+    heights by (lat, lon)."""
+    from topo_renderer_tpu_torch.backend.server import dem_file_name, peaks_file_name
+    from topo_renderer_tpu_torch.data.tiff import write_geotiff
+
+    rng = np.random.default_rng(SEED + 7)
+    written = {}
+    for lat in range(lat0, lat0 + 3):
+        for lon in range(lon0, lon0 + 3):
+            loc, heights, transform = make_tile(lat, lon)
+            ps = transform.pixel_scale[0]
+            path = root / dem_file_name(loc)
+            path.parent.mkdir(parents=True, exist_ok=True)
+            path.write_bytes(write_geotiff(heights, (ps, ps, 0.0), (0.0, 0.0, 0.0, float(lon), float(lat + 1), 0.0)))
+            plat = lat + rng.uniform(0.002, 0.998, PEAKS_PER_TILE)
+            plon = lon + rng.uniform(0.002, 0.998, PEAKS_PER_TILE)
+            elev = terrain(plat, plon)
+            rows = [f"{a:.6f},{o:.6f},Peak {lat}-{lon}-{i},{e:.1f}" for i, (a, o, e) in enumerate(zip(plat, plon, elev))]
+            path = root / peaks_file_name(loc)
+            path.parent.mkdir(parents=True, exist_ok=True)
+            path.write_text("latitude,longitude,name,elevation\n" + "\n".join(rows) + "\n")
+            written[(lat, lon)] = heights
+    return written
+
+
+def tile_fetch_and_decode(url, written):
+    """Per tile: the HTTP fetch of its GeoTIFF, its decode on the native
+    decoder and on the Python decoder (both must equal the array written),
+    and `fetch_terrain` whole (fetch, decode, peaks CSV and positions); then
+    the 8-worker runner on all tiles at once, with `fetch_terrain`, its
+    decode and its peak positions (torch CPU ops) timed inside each worker.
+    Returns medians in ms."""
+    import torch
+
+    from topo_renderer_tpu_torch import native
+    from topo_renderer_tpu_torch.config import Settings
+    from topo_renderer_tpu_torch.data import background, tiff
+    from topo_renderer_tpu_torch.data.fetch import get_tiff_from_http
+    from topo_renderer_tpu_torch.geo import GeoCoord, GeoLocation
+
+    if not native.available():
+        raise AssertionError("host runtime: the native GeoTIFF decoder did not build (g++ and zlib)")
+    times = {"fetch": [], "native decode": [], "Python decode": [], "fetch_terrain": []}
+    settings = Settings(backend_url=url)
+    try_native = tiff._try_native
+    serial = StageClock()
+    serial.wrap(background, "ecef_from_geo", "positions")
+    for (lat, lon), heights in written.items():
+        loc = GeoLocation.from_coord(lat, lon)
+        t0 = time.perf_counter()
+        blob = get_tiff_from_http(url, loc)
+        times["fetch"].append(1e3 * (time.perf_counter() - t0))
+        for key, patch in (("native decode", try_native), ("Python decode", lambda data: None)):
+            tiff._try_native = patch
+            try:
+                t0 = time.perf_counter()
+                decoded, info = tiff.read_geotiff(blob)
+                times[key].append(1e3 * (time.perf_counter() - t0))
+            finally:
+                tiff._try_native = try_native
+            if decoded.dtype != np.float32 or not np.array_equal(decoded, heights):
+                raise AssertionError(f"host runtime: the {key} of tile {lat}N {lon}E differs from the array written")
+        t0 = time.perf_counter()
+        peaks, _ = background.fetch_terrain(loc, settings)
+        times["fetch_terrain"].append(1e3 * (time.perf_counter() - t0))
+        if not 0 < len(peaks) <= PEAKS_PER_TILE:
+            raise AssertionError(f"host runtime: tile {lat}N {lon}E gave {len(peaks)} peaks")
+    serial.restore()
+    events = []
+    runner = background.BackgroundRunner(settings, lambda kind, payload: events.append(kind))
+    inside = StageClock()
+    for name, key in (("fetch_terrain", "fetch_terrain"), ("read_geotiff", "decode"), ("ecef_from_geo", "positions")):
+        inside.wrap(background, name, key)
+    runner.spawn()
+    t0 = time.perf_counter()
+    try:
+        for lat, lon in written:
+            runner.send(background.DataRequested(GeoLocation.from_coord(lat, lon), GeoCoord(lat + 0.5, lon + 0.5)))
+        runner.drain(timeout=120)
+    finally:
+        runner.shutdown()
+        inside.restore()
+    parallel_ms = 1e3 * (time.perf_counter() - t0)
+    if events.count("terrain_ready") != len(written):
+        raise AssertionError(f"host runtime: the runner delivered {events.count('terrain_ready')} tiles")
+    times["positions"] = [1e3 * (b - a) for a, b in serial.spans["positions"]]
+    med = {k: float(np.median(v)) for k, v in times.items()}
+    in_runner = {k: float(np.median([1e3 * (b - a) for a, b in inside.spans[k]]))
+                 for k in ("fetch_terrain", "decode", "positions")}
+    log(f"host runtime: per tile of {TEXELS}^2 (median of {len(written)}): fetch {med['fetch']:.2f} ms, native "
+        f"decode {med['native decode']:.2f} ms, Python decode {med['Python decode']:.2f} ms (both bit-equal to the "
+        f"arrays written), fetch_terrain whole {med['fetch_terrain']:.2f} ms with {PEAKS_PER_TILE} peaks, of which "
+        f"the peak positions {med['positions']:.3f} ms; the 8-worker runner on all {len(written)} tiles "
+        f"{parallel_ms:.1f} ms, per tile inside a worker (median): fetch_terrain {in_runner['fetch_terrain']:.2f} ms, "
+        f"its decode {in_runner['decode']:.2f} ms, its peak positions {in_runner['positions']:.3f} ms; torch "
+        f"intra-op threads {torch.get_num_threads()}; the default decoder is the native one")
+    return dict(med, runner_ms=parallel_ms, **{f"runner {k}": v for k, v in in_runner.items()})
+
+
+def run_cli(argv, clock):
+    """One CLI call with its stages timed (the mosaic build and slot
+    updates up to a device sync); returns (whole ms, the application it
+    made, the launch counts)."""
+    from topo_renderer_tpu_torch.app.application import Application
+    from topo_renderer_tpu_torch.frontends import cli
+    from topo_renderer_tpu_torch.render.engine import RenderEngine
+    from topo_renderer_tpu_torch.utils import imageio
+
+    made = []
+    init = Application.__init__
+
+    def keep(self, *args, **kw):
+        init(self, *args, **kw)
+        made.append(self)
+
+    Application.__init__ = keep
+    clock.wrap(Application, "__init__", "construct")
+    clock.wrap(Application, "start", "start")
+    clock.wrap(Application, "wait_for_terrain", "wait_for_terrain")
+    clock.wrap(RenderEngine, "height_at", "height_at")
+    clock.wrap(RenderEngine, "_full_streaming_rebuild", "mosaic build", sync=True)
+    clock.wrap(RenderEngine, "_apply_pending", "slot updates", sync=True)
+    clock.wrap(RenderEngine, "render_panorama", "frame")
+    clock.wrap(RenderEngine, "render", "frame")
+    clock.wrap(imageio, "save_image", "save_image")
+    reset_counts()
+    t0 = time.perf_counter()
+    try:
+        rc = cli.main(argv)
+    finally:
+        whole = 1e3 * (time.perf_counter() - t0)
+        counts = read_counts()
+        clock.restore()
+        Application.__init__ = init
+    if rc != 0 or len(made) != 1:
+        raise AssertionError(f"cli {argv[0]}: exit code {rc}")
+    return whole, made[0], counts
+
+
+def cli_stage_line(what, whole, clock):
+    """Log one CLI call's stages: `Application()`, time to first terrain
+    (`start` to the end of `wait_for_terrain`), the CLI's fixed 2 s pump,
+    `height_at` (the first mosaic build happens in it), the frame and
+    `save_image`; the rest is argument parsing and shutdown."""
+    wait_end = clock.spans["wait_for_terrain"][0][1]
+    stages = {"Application()": clock.ms("construct"),
+              "time to first terrain": 1e3 * (wait_end - clock.spans["start"][0][0]),
+              "the fixed 2 s pump": 1e3 * (clock.spans["height_at"][0][0] - wait_end),
+              "height_at": clock.ms("height_at"), "frame": clock.ms("frame"), "save_image": clock.ms("save_image")}
+    rest = whole - sum(stages.values())
+    stages.update({"mosaic build (in height_at)": clock.ms("mosaic build"), "slot updates": clock.ms("slot updates")})
+    log(f"{what}: {whole:.1f} ms host clock for the whole call; "
+        + ", ".join(f"{k} {v:.1f} ms" for k, v in stages.items()) + f", the rest {rest:.1f} ms")
+
+
+def reference_engine(app):
+    """A fresh streaming engine with the app's decoded tiles and peaks; it
+    builds its canvas from the sorted tiles, as the app's first build does
+    when every tile has landed before it."""
+    from topo_renderer_tpu_torch.render.engine import RenderEngine
+
+    order = sorted(app.engine._slots, key=lambda loc: app.engine._slots[loc][0])
+    if order != sorted(app.engine._tiles):
+        raise AssertionError(f"host runtime: the CLI built before every tile landed (slots {order})")
+    ref = RenderEngine(streaming=True)
+    for loc, tile in app.engine._tiles.items():
+        ref.add_terrain(loc, tile.heights, tile.transform)
+    for loc, peaks in app.engine._peaks.items():
+        ref.add_peaks(loc, peaks)
+    return ref
+
+
+def app_cold_run(url, size, lat, lon):
+    """`Application.run` from cold with W held and ``fast=True``: frames
+    start as soon as the first tile lands; later tiles become slot updates
+    (inside the canvas) or rebuilds. Returns per-step records."""
+    from topo_renderer_tpu_torch.app.application import Application
+    from topo_renderer_tpu_torch.config import Settings
+    from topo_renderer_tpu_torch.control.events import Key, KeyInput
+    from topo_renderer_tpu_torch.control.ui_controller import get_locations_range
+    from topo_renderer_tpu_torch.geo import GeoCoord
+    from topo_renderer_tpu_torch.render import engine as engine_mod
+
+    clock = StageClock()
+    app = Application(Settings(backend_url=url), camera_speed=APP_CAMERA_SPEED)
+    n_tiles = len(get_locations_range(GeoCoord(lat, lon)))
+    records = []
+    try:
+        app.viewport = size
+        clock.wrap(app.engine, "_full_streaming_rebuild", "build")
+        clock.wrap(engine_mod, "apply_slot_update", "update")
+        step = app.step
+        t_start = time.perf_counter()
+        state = {"done_at": None}
+
+        def timed_step(**kw):
+            reset_counts()
+            builds, updates = len(clock.spans.get("build", ())), len(clock.spans.get("update", ()))
+            t0 = time.perf_counter()
+            res = step(**kw)
+            ms = 1e3 * (time.perf_counter() - t0)
+            loaded = len(app.engine.loaded_locations)
+            records.append(dict(ms=ms, rendered=res is not None, loaded=loaded, counts=read_counts(),
+                                builds=len(clock.spans.get("build", ())) - builds,
+                                updates=len(clock.spans.get("update", ())) - updates,
+                                t=1e3 * (time.perf_counter() - t_start)))
+            all_in = loaded == n_tiles and not app.engine._pending and app.background.idle()
+            if all_in and state["done_at"] is None:
+                state["done_at"] = len(records)
+            if (state["done_at"] is not None and len(records) >= state["done_at"] + APP_STEPS_AFTER) or \
+                    time.perf_counter() - t_start > APP_TIMEOUT_S:
+                app._running = False
+            return res
+
+        app.step = timed_step
+        app.start(GeoCoord(lat, lon))
+        app.process_input(KeyInput(Key.W, True))
+        app.run(target_fps=1e6, fast=True, n_steps=512)
+        if state["done_at"] is None:
+            raise AssertionError(f"app run: {len(app.engine.loaded_locations)} of {n_tiles} tiles after {APP_TIMEOUT_S} s")
+        n_tables = check_tables(app.engine, slot_order_build(app.engine), "app run")
+    finally:
+        clock.restore()
+        app.shutdown()
+    return records, state["done_at"], n_tiles, n_tables
+
+
+def host_runtime_path():
+    """Phase 4h: the port's host runtime from a local `BackendServer` to the
+    CLI's image, on the streaming scene's 3 x 3 tiles (44-46N, 11-13E):
+    per-tile fetch and decode; `topo-render-torch panorama` and `render`
+    (`frontends/cli.py::main`) with their stages timed, the launch counts
+    of each call, the app engine's tables against a fresh build in slot
+    order, and each PNG against a fresh engine's render of the same arrays,
+    peaks and camera; then `Application.run` from cold with W held.
+    Returns the launch counts of one call of each path by its name."""
+    import dataclasses
+    import gc
+    import math
+    import os
+    import shutil
+    import tempfile
+    from pathlib import Path
+
+    import torch
+    from PIL import Image
+
+    from topo_renderer_tpu_torch.backend.server import BackendServer
+    from topo_renderer_tpu_torch.config import Settings
+    from topo_renderer_tpu_torch.geo import GeoCoord
+    from topo_renderer_tpu_torch.models.camera import Camera
+    from topo_renderer_tpu_torch.ops.panorama import PanoramaSpec
+
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    root = Path(tempfile.mkdtemp(prefix="topo_backend_"))
+    saved_url = os.environ.get("TOPO_BACKEND_URL")
+    server = None
+    counts = {}
+    try:
+        t0 = time.perf_counter()
+        written = write_backend_data(root, STREAM_LAT, STREAM_LON)
+        server = BackendServer(Settings(address="127.0.0.1", port=0, data_dir=str(root)))
+        server.start()
+        log(f"host runtime (phase 4h): 9 GeoTIFFs of {TEXELS}^2 and {9 * PEAKS_PER_TILE} peaks written and served at "
+            f"{server.url} in {1e3 * (time.perf_counter() - t0):.0f} ms")
+        tile_fetch_and_decode(server.url, written)
+
+        os.environ["TOPO_BACKEND_URL"] = server.url
+        lat, lon = STREAM_LAT + 1.5, STREAM_LON + 1.5
+        where = ["--lat", str(lat), "--lon", str(lon), "--height-above", "300", "--device", "cuda"]
+        pw, ph, psteps = CLI_PANORAMA
+        fw, fh, fsteps = CLI_FRAME
+        calls = {
+            "cli_panorama": (["panorama", *where, "--width", str(pw), "--height", str(ph), "--steps", str(psteps),
+                              "--fast", "--fog", "atmosphere"], {"crossing_search": 1, "window_slice_multi": 1}),
+            "cli_render": (["render", *where, "--width", str(fw), "--height", str(fh), "--steps", str(fsteps)],
+                           {"crossing_search": 2, "window_slice_multi": 0}),
+        }
+        for name, (argv, want) in calls.items():
+            out = root / f"{name}.png"
+            clock = StageClock()
+            whole, app, counts[name] = run_cli([*argv, "-o", str(out)], clock)
+            expect_counts(name, counts[name], dict(want, window_slice_multi_batched=0))
+            cli_stage_line(f"{name} ({' '.join(argv[:1] + argv[7:])})", whole, clock)
+            res = clock.last["frame"]
+            if len(app.engine.loaded_locations) != 9 or app.background._thread.is_alive():
+                raise AssertionError(f"{name}: {len(app.engine.loaded_locations)} tiles, runner alive")
+            for tile in app.engine._tiles.values():
+                lat0 = round(tile.transform.model_point[1]) - 1
+                lon0 = round(tile.transform.model_point[0])
+                if not np.array_equal(tile.heights, written[(lat0, lon0)]):
+                    raise AssertionError(f"{name}: the app's tile {lat0}N {lon0}E differs from the array written")
+            n_tables = check_tables(app.engine, slot_order_build(app.engine), name)
+            png = np.asarray(Image.open(out))
+            ref_engine = reference_engine(app)
+            del app
+            gc.collect()  # the application and its runner hold each other
+            cam = Camera().reset(GeoCoord(lat, lon), ref_engine.height_at(GeoCoord(lat, lon)) + 300.0)
+            if name == "cli_panorama":
+                ref = ref_engine.render_panorama(cam, PanoramaSpec.fast(width=pw, height=ph, n_steps=psteps),
+                                                 fog="atmosphere")
+            else:  # the CLI's pose flags at their defaults, as it applies them
+                cam = dataclasses.replace(cam, yaw=math.radians(0.0), pitch=math.radians(0.0))
+                ref = ref_engine.render(cam.with_fovy(math.radians(45.0)), fw, fh, n_steps=fsteps)
+            n_labels = len(res.layouts)
+            if png.shape != ref.color.shape or not np.array_equal(png, ref.color) or n_labels != len(ref.layouts):
+                raise AssertionError(f"{name}: the PNG differs from the engine's own render "
+                                     f"({n_labels} vs {len(ref.layouts)} labels)")
+            hit = float(np.asarray(ref.hit).mean())
+            if not 0.0 < hit < 1.0 or (name == "cli_panorama" and n_labels < 1):
+                raise AssertionError(f"{name}: hit {hit:.3f}, {n_labels} labels")
+            log(f"{name}: launches {counts[name]}; {n_tables} tables equal a fresh build in slot order; the "
+                f"{png.shape[1]}x{png.shape[0]} PNG equals a fresh engine's render bit for bit, hit {hit:.3f}, "
+                f"{n_labels} labels in both")
+            del ref_engine, ref, res
+            torch.cuda.empty_cache()
+
+        phase_peak = torch.cuda.max_memory_allocated() - base
+        torch.cuda.reset_peak_memory_stats()
+        app_base = torch.cuda.memory_allocated()
+        records, done_at, n_tiles, n_tables = app_cold_run(server.url, (fw, fh), lat, lon)
+        gc.collect()
+        before = [r for r in records[:done_at] if r["rendered"]]
+        after = [r for r in records[done_at:] if r["rendered"]]
+        builds = sum(r["builds"] for r in records[:done_at])
+        updates = sum(r["updates"] for r in records[:done_at])
+        counts["app_step"] = after[-1]["counts"] if after else {}
+        for r in after:
+            expect_counts("app step", r["counts"], {"crossing_search": 1, "window_slice_multi": 1,
+                                                    "window_slice_multi_batched": 0})
+        first = next(r for r in records if r["rendered"])
+        peak = (f"the CLI calls' {phase_peak / 1e9:.2f} GB above the phase's start, the app run's "
+                f"{(torch.cuda.max_memory_allocated() - app_base) / 1e9:.2f} GB above its own")
+        log(f"app run (cold, W held, fast {fw}x{fh}): {len(records)} steps, first frame at {first['t']:.0f} ms with "
+            f"{first['loaded']} tiles; all {n_tiles} tiles in after {done_at} steps ({records[done_at - 1]['t']:.0f} ms): "
+            f"{builds} full builds and {updates} slot updates; ms per step while tiles land "
+            f"{', '.join('%.0f' % r['ms'] for r in before[:12])}; after: median "
+            f"{np.median([r['ms'] for r in after]):.1f} ms over {len(after)} steps, K1/K2 per step "
+            f"{counts['app_step'].get('crossing_search')}/{counts['app_step'].get('window_slice_multi')}; "
+            f"{n_tables} tables equal a fresh build in slot order; peak device memory: {peak}")
+        return counts
+    finally:
+        if server is not None:
+            server.stop()
+        if saved_url is None:
+            os.environ.pop("TOPO_BACKEND_URL", None)
+        else:
+            os.environ["TOPO_BACKEND_URL"] = saved_url
+        shutil.rmtree(root, ignore_errors=True)
+        torch.cuda.empty_cache()
 
 
 def small_scene_agreement():
@@ -1576,6 +2007,7 @@ def main(argv) -> int:
     del engine
     torch.cuda.empty_cache()
     per_call.update(streaming_path())
+    per_call.update(host_runtime_path())
     device_times(kernels)
     # ``launches``: one call of the path each kernel serves (K3 and K1: the
     # batch; K2: the single panorama); every path's count is in

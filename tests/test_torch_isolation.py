@@ -41,6 +41,15 @@ def test_no_forbidden_module_after_import():
         "import chip_smoke\n"
         "from topo_renderer_tpu_torch.ops.raycast import march_guided_panorama, render_perspective\n"
         "from topo_renderer_tpu_torch.ops.panorama import panorama_crossing_prepass\n"
+        "from topo_renderer_tpu_torch.frontends.cli import main\n"
+        "from topo_renderer_tpu_torch.backend.server import main as backend_main\n"
+        "from topo_renderer_tpu_torch.app.application import Application\n"
+        "from topo_renderer_tpu_torch.data.tiff import read_geotiff, write_geotiff\n"
+        "from topo_renderer_tpu_torch.data.background import BackgroundRunner\n"
+        "from topo_renderer_tpu_torch import native\n"
+        "import numpy as np\n"
+        "blob = write_geotiff(np.ones((3, 4), np.float32), (1.0, 1.0, 0.0), (0.0,) * 6)\n"
+        "assert read_geotiff(blob)[0].shape == (3, 4)\n"
         f"bad = sorted(m for m in sys.modules if m.split('.')[0] in {sorted(FORBIDDEN)!r})\n"
         "print(len(sys.modules), bad)\n"
     )
@@ -70,6 +79,22 @@ def test_engine_needs_cuda_by_default(monkeypatch):
         RenderEngine()
     with pytest.raises(RuntimeError, match="CUDA"):
         topo_renderer_tpu_torch.resolve_device(None)
+
+
+def test_app_and_cli_need_cuda_by_default(monkeypatch):
+    """`Application()` and the CLI without ``--device`` run on CUDA and raise
+    without it, before a worker or a request exists."""
+    from topo_renderer_tpu_torch.app.application import Application
+    from topo_renderer_tpu_torch.config import Settings
+    from topo_renderer_tpu_torch.frontends import cli
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    monkeypatch.setenv("TOPO_BACKEND_URL", "http://127.0.0.1:9")
+    with pytest.raises(RuntimeError, match="CUDA"):
+        Application(Settings(backend_url="http://127.0.0.1:9"))
+    for command in ("panorama", "render"):
+        with pytest.raises(RuntimeError, match="CUDA"):
+            cli.main([command, "--lat", "45.5", "--lon", "12.5", "--width", "64", "--height", "16"])
 
 
 SPAN = 0.03

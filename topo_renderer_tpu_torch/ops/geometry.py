@@ -45,12 +45,19 @@ def degrees(x: torch.Tensor) -> torch.Tensor:
 
 
 def ecef_from_geo(height, longitude_deg, latitude_deg):
-    """`geometry::transform` (`geometry.rs:12-20`): (h, lon°, lat°) -> ECEF [...,3]."""
-    height, longitude_deg, latitude_deg = (
-        f32(v) if not isinstance(v, torch.Tensor) else v
-        for v in (height, longitude_deg, latitude_deg)
+    """`geometry::transform` (`geometry.rs:12-20`): (h, lon°, lat°) -> ECEF [...,3].
+
+    A float32 ``height`` is added to R0 in float32. A Python number or a
+    float64 tensor is added in float64 and the sum rounded once to float32,
+    as the JAX package's Python-float ``R0 + height`` is before its weak
+    type meets the float32 products."""
+    longitude_deg, latitude_deg = (
+        f32(v) if not isinstance(v, torch.Tensor) else v for v in (longitude_deg, latitude_deg)
     )
-    r = R0 + height
+    if isinstance(height, torch.Tensor) and height.dtype == torch.float32:
+        r = R0 + height
+    else:
+        r = (R0 + torch.as_tensor(height, dtype=torch.float64)).to(torch.float32)
     lon = radians(longitude_deg)
     lat = radians(latitude_deg)
     cos_lat = torch.cos(lat)

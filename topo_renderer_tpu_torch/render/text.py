@@ -10,9 +10,9 @@ Parity with `topo-renderer/src/render/text_renderer.rs`:
     (`process_label_layout`, `text_renderer.rs:300-338`); row index >= 8
     drops the label; label_y = line_height * (0.5 + row)
     (`layout_labels`, `text_renderer.rs:340-372`).
-  * font selection by the first character's coverage
-    (`text_renderer.rs:143-155`, `render/fonts.py`); the runtime font
-    downloads (`text_renderer.rs:28-48,160-196`) are not ported yet.
+  * script detection for font selection uses the first character
+    (`text_renderer.rs:143-155`); `render/fonts.py` fetches the script's
+    font at runtime (`text_renderer.rs:28-48,160-196`) when enabled.
 
 Text rasterization itself is host-side (SURVEY §7: glyphs are inherently
 host work); `render/overlay.py` draws the laid-out labels.
@@ -23,7 +23,8 @@ from __future__ import annotations
 import bisect
 import dataclasses
 import functools
-from typing import Callable, Mapping, Sequence
+import unicodedata
+from typing import Callable, Iterable, Mapping, Sequence
 
 from topo_renderer_tpu_torch.geo import GeoLocation
 
@@ -114,6 +115,43 @@ def layout_labels(
                 )
             )
     return out
+
+
+def get_scripts(texts: Iterable[str]) -> set[str]:
+    """First-character script per label (`text_renderer.rs:143-155`)."""
+    scripts = set()
+    for text in texts:
+        if text:
+            scripts.add(_char_script(text[0]))
+    return scripts
+
+
+def _char_script(ch: str) -> str:
+    """Coarse script detection via unicodedata (stdlib; no unicode-script
+    crate here). Returns an ISO-15924-ish tag for the scripts the reference
+    maps to font downloads (`text_renderer.rs:28-48`)."""
+    try:
+        name = unicodedata.name(ch)
+    except ValueError:
+        return "Zzzz"
+    for key, tag in (
+        ("CJK", "Hani"),
+        ("HIRAGANA", "Hira"),
+        ("KATAKANA", "Kana"),
+        ("HANGUL", "Hang"),
+        ("ARABIC", "Arab"),
+        ("HEBREW", "Hebr"),
+        ("ARMENIAN", "Armn"),
+        ("BENGALI", "Beng"),
+        ("TAMIL", "Taml"),
+        ("THAI", "Thai"),
+        ("GEORGIAN", "Geor"),
+        ("CYRILLIC", "Cyrl"),
+        ("GREEK", "Grek"),
+    ):
+        if key in name:
+            return tag
+    return "Latn"
 
 
 @functools.lru_cache(maxsize=8)
