@@ -76,7 +76,31 @@ Phases (any failure exits non-zero):
         `Application.run` from cold with W held (fast frames from the first
         tile on): steps, full builds and slot updates until all 9 tiles are
         in, ms per step, K1/K2 per step (1/1), and the peak device memory
-        of the CLI calls and of the app run.
+        of the CLI calls and of the app run;
+     i. the frontends: phase 4h's 9 GeoTIFFs served by a local
+        `BackendServer`; the web frontend (`frontends/web/server.py`) on
+        CUDA in a thread answers `/location` at 45.5N 12.5E and `/session`,
+        then 20 forced 800 x 450 fast frames with labels through the
+        yuv420 wire, W held (ms per request, request to JPEG bytes, on the
+        host clock; K1/K2 1/1 each; the server's stages timed with
+        `utils/profiling.FrameTimer`), 10 exact frames on the interactive
+        rung (K1 2, K2 0), one yuv420_half frame and one frame traced with
+        `utils/profiling.trace`, whose `summarize_trace` must name K1's and
+        K2's kernels; every served image, taken before its JPEG encode,
+        equals the engine's render of the session's camera bit for bit.
+        Then `/render`'s default 1024 x 384 panorama (K1 1, K2 1; the PNG
+        equal to the engine's panorama) and again from its cache, and
+        frames/s with one and with two requests in flight on one session.
+        Then `DesktopFrontend`'s headless core at 800 x 600 (the Tk shell
+        needs a display): 20 `render_frame` calls with W held (ms per
+        frame, K1/K2 1/1, each equal to the engine's render);
+     j. the host mosaic build: `RenderEngine(streaming=True,
+        device_mosaic_build=False)` on the streaming scene's 9 tiles (a
+        6144^2 canvas): `build_mosaic(on_device=False)` timed, with its
+        numpy tables apart, against a device build of the same canvas
+        (height tables bit for bit, packed normals within one code on
+        under 2% of texels); one slot update, then a fast (K1 1, K2 1) and
+        an exact frame (K1 2), each with 0 host syncs inside the frame.
      Small scenes rendered on the card and on the CPU (plain versions) must
      agree, for the fast preset, the fallback's spec, the fast frame
      (level, 1.1 rad down and across azimuth ±pi) and the exact frame at
@@ -1859,6 +1883,520 @@ def host_runtime_path():
         torch.cuda.empty_cache()
 
 
+# ---- phase 4i: the web and desktop frontends ---------------------------------
+
+WEB_FRAMES = 20  # forced fast frames, W held
+WEB_EXACT_FRAMES = 10
+WEB_PIPELINE_FRAMES = 20  # delivered frames per run of the one- and two-in-flight loops
+WEB_RENDER = (1024, 384)  # `/render`'s default panorama
+DESKTOP_W, DESKTOP_H = 800, 600  # the reference desktop's window (`frontends/desktop.py`)
+DESKTOP_FRAMES = 20
+
+
+def web_request(base, path, body=None, timeout=300):
+    """One request to the web frontend (POST with a JSON body, or GET
+    without one): (status, body bytes, headers)."""
+    import urllib.error
+    import urllib.request
+
+    data = None if body is None else json.dumps(body).encode()
+    req = urllib.request.Request(base + path, data=data, method="GET" if body is None else "POST")
+    try:
+        with urllib.request.urlopen(req, timeout=timeout) as resp:
+            return resp.status, resp.read(), dict(resp.headers)
+    except urllib.error.HTTPError as e:
+        return e.status, e.read(), dict(e.headers)
+
+
+class K1Shapes:
+    """The (N, W, H) of every K1 call while it is installed: it wraps the
+    input check that `crossing_search` runs first."""
+
+    def __enter__(self):
+        from topo_renderer_tpu_torch.ops import crossing
+
+        self.shapes, self._check = [], crossing._check_inputs
+
+        def check(e_prof, a0, a1, a2, thresh):
+            self.shapes.append((*e_prof.shape, thresh.shape[0]))
+            return self._check(e_prof, a0, a1, a2, thresh)
+
+        crossing._check_inputs = check
+        return self
+
+    def __exit__(self, *exc):
+        from topo_renderer_tpu_torch.ops import crossing
+
+        crossing._check_inputs = self._check
+
+
+def web_stage_timers(fe, timer, captured):
+    """Time the served frame's stages into ``timer`` (a `FrameTimer`) and keep
+    each u8 image the server hands to its JPEG encoder in ``captured``.
+    Returns a function that removes the wrappers."""
+    import torch
+
+    from topo_renderer_tpu_torch.frontends.web import server as web
+
+    saved = []
+
+    def wrap(owner, name, key, keep=None):
+        fn = getattr(owner, name)
+
+        def timed(*args, **kw):
+            if keep is not None:
+                keep(args)
+            t0 = time.perf_counter()
+            try:
+                return fn(*args, **kw)
+            finally:
+                timer.add(key, time.perf_counter() - t0)
+
+        saved.append((owner, name, fn, name in vars(owner)))
+        setattr(owner, name, timed)
+
+    engine = fe.app.engine
+    make_finish = engine._make_finish
+
+    def timed_finish(*args, **kw):
+        finish = make_finish(*args, **kw)
+
+        def call(buf):
+            t0 = time.perf_counter()
+            try:
+                return finish(buf)
+            finally:
+                timer.add("finish: decode and label pass", time.perf_counter() - t0)
+
+        return call
+
+    wrap(engine, "render", "render dispatch (under the lock)")
+    wrap(web, "_start_pull", "pinned copy queued (under the lock)")
+    wrap(torch.cuda.Event, "synchronize", "pull wait (the frame's copy)")
+    wrap(web, "composite_labels", "label compositing")
+    wrap(web, "encode_jpeg", "JPEG encode", keep=lambda args: captured.append(np.array(args[0])))
+    engine._make_finish = timed_finish
+
+    def restore():
+        for owner, name, fn, own in reversed(saved):
+            if own:
+                setattr(owner, name, fn)
+            else:
+                delattr(owner, name)
+        del engine._make_finish
+
+    return restore
+
+
+def engine_frame(fe, cam, width, height, **kw):
+    """What the web frontend serves for ``cam``, rendered by its engine
+    directly: the wire frame pulled, finished and composited."""
+    from topo_renderer_tpu_torch.render.overlay import composite_labels
+
+    with fe._render_lock:
+        res = fe.app.engine.render(cam, width, height, host_copy=False, **kw)
+        buf = res.color.cpu().numpy()
+    frame, _, layouts, names = res.finish(buf)
+    return composite_labels(frame, layouts, names) if layouts else frame
+
+
+def served_frames(base, sid, body, count, what, want, cams, sess):
+    """``count`` forced frames of one session; each must answer 200 with a
+    JPEG and launch ``want``. Returns per-request host-clock ms."""
+    ms = []
+    for i in range(count):
+        reset_counts()
+        t0 = time.perf_counter()
+        status, jpg, _ = web_request(base, f"/frame?session={sid}", dict(body, force=True))
+        ms.append(1e3 * (time.perf_counter() - t0))
+        if status != 200 or jpg[:2] != b"\xff\xd8":
+            raise AssertionError(f"{what} {i}: HTTP {status} {jpg[:200]!r}")
+        expect_counts(f"{what} {i}", read_counts(), dict(want, window_slice_multi_batched=0))
+        cams.append(sess.camera)
+    return ms
+
+
+def in_flight_run(base, sid, threads, frames):
+    """``threads`` clients of one session, each sending forced frames back
+    to back (after a 204, 25 ms later, as the browser's tick does) until
+    ``frames`` frames are delivered in all. Returns (delivered frames/s,
+    204s, wall ms)."""
+    import threading
+
+    lock = threading.Lock()
+    state = {"delivered": 0, "dropped": 0, "errors": []}
+
+    def client():
+        while True:
+            with lock:
+                if state["delivered"] >= frames or state["errors"]:
+                    return
+            status, body, _ = web_request(base, f"/frame?session={sid}",
+                                          {"force": True, "width": FAST_W, "height": FAST_H})
+            with lock:
+                if status == 200:
+                    state["delivered"] += 1
+                elif status == 204:
+                    state["dropped"] += 1
+                else:
+                    state["errors"].append((status, body[:200]))
+            if status == 204:
+                time.sleep(0.025)
+
+    workers = [threading.Thread(target=client) for _ in range(threads)]
+    t0 = time.perf_counter()
+    for w in workers:
+        w.start()
+    for w in workers:
+        w.join(timeout=120)
+    wall = time.perf_counter() - t0
+    if state["errors"] or any(w.is_alive() for w in workers):
+        raise AssertionError(f"web, {threads} in flight: {state['errors'][:2]}, alive "
+                             f"{sum(w.is_alive() for w in workers)}")
+    return state["delivered"] / wall, state["dropped"], 1e3 * wall
+
+
+def web_frontend_run(url, lat, lon):
+    """Phase 4i's web part; returns the launch counts by path name."""
+    import gc
+    import io
+    import shutil
+    import tempfile
+    import threading
+
+    import torch
+    from PIL import Image
+
+    from topo_renderer_tpu_torch.config import Settings
+    from topo_renderer_tpu_torch.frontends.web import server as web
+    from topo_renderer_tpu_torch.ops.panorama import PanoramaSpec
+    from topo_renderer_tpu_torch.utils.profiling import FrameTimer, summarize_trace, trace
+
+    counts = {}
+    fe = web.WebFrontend(Settings(backend_url=url), port=0)
+    thread = threading.Thread(target=fe.serve_forever, daemon=True)
+    thread.start()
+    base = f"http://127.0.0.1:{fe._httpd.server_address[1]}"
+    trace_dir = tempfile.mkdtemp(prefix="topo_web_trace_")
+    try:
+        t0 = time.perf_counter()
+        status, body, _ = web_request(base, "/location", {"latitude": lat, "longitude": lon})
+        location_ms = 1e3 * (time.perf_counter() - t0)
+        if status != 200 or json.loads(body)["loaded"] != 9:
+            raise AssertionError(f"web /location: HTTP {status} {body[:200]!r}")
+        sid = json.loads(web_request(base, "/session", {})[1])["id"]
+        sess = fe._sessions[sid]
+        sess.controller.speed = APP_CAMERA_SPEED
+        fast = {"width": FAST_W, "height": FAST_H, "labels": True}
+        t0 = time.perf_counter()
+        status, _, _ = web_request(base, f"/frame?session={sid}",
+                                   dict(fast, force=True, events=[{"type": "key", "key": "w", "pressed": True}]))
+        first_ms = 1e3 * (time.perf_counter() - t0)  # builds the streaming canvas
+        if status != 200:
+            raise AssertionError(f"web first frame: HTTP {status}")
+        served_frames(base, sid, fast, 1, "web warm-up", {"crossing_search": 1, "window_slice_multi": 1}, [], sess)
+
+        timer, captured, cams = FrameTimer(), [], []
+        restore = web_stage_timers(fe, timer, captured)
+        try:
+            with K1Shapes() as k1:
+                fast_ms = served_frames(base, sid, fast, WEB_FRAMES, "web fast frame",
+                                        {"crossing_search": 1, "window_slice_multi": 1}, cams, sess)
+            counts["web_frame"] = read_counts()
+            stages = timer.report()
+            exact_ms = served_frames(base, sid, dict(fast, exact=True, exact_quality="interactive"), WEB_EXACT_FRAMES,
+                                     "web exact frame", {"crossing_search": 2, "window_slice_multi": 0}, cams, sess)
+            counts["web_frame_exact"] = read_counts()
+            half_ms = served_frames(base, sid, dict(fast, pixfmt="yuv420_half"), 1, "web yuv420_half frame",
+                                    {"crossing_search": 1, "window_slice_multi": 1}, cams, sess)
+            with trace(trace_dir):
+                served_frames(base, sid, fast, 1, "web traced frame", {"crossing_search": 1, "window_slice_multi": 1},
+                              cams, sess)
+        finally:
+            restore()
+        kinds = ([dict(fast=True, wire="yuv420")] * WEB_FRAMES
+                 + [dict(fast=False, wire="rgb888", exact_quality="interactive")] * WEB_EXACT_FRAMES
+                 + [dict(fast=True, wire="yuv420_half"), dict(fast=True, wire="yuv420")])
+        if not len(captured) == len(cams) == len(kinds):
+            raise AssertionError(f"web: {len(captured)} images for {len(cams)} frames")
+        for i, (img, cam, kw) in enumerate(zip(captured, cams, kinds)):
+            want = engine_frame(fe, cam, FAST_W, FAST_H, **kw)
+            if img.shape != (FAST_H, FAST_W, 3) or not np.array_equal(img, want):
+                raise AssertionError(f"web frame {i} ({kw}): the served image differs from the engine's render")
+        colours = len(np.unique(captured[0].reshape(-1, 3), axis=0))
+        if colours <= 200:
+            raise AssertionError(f"web fast frame: {colours} colours")
+        ops = summarize_trace(trace_dir, top=1 << 30)
+        kernels = {key: [(ms, name) for ms, name in ops if key in name]
+                   for key in ("crossing_kernel", "window_slice_kernel")}
+        if not all(kernels.values()):
+            raise AssertionError(f"web traced frame: K1 or K2 missing from the trace's {len(ops)} device ops: "
+                                 f"{[name[:60] for _, name in ops]}")
+
+        reset_counts()
+        t0 = time.perf_counter()
+        status, png, _ = web_request(base, f"/render?latitude={lat}&longitude={lon}")
+        render_ms = 1e3 * (time.perf_counter() - t0)
+        counts["web_render"] = read_counts()
+        expect_counts("web /render", counts["web_render"], {"crossing_search": 1, "window_slice_multi": 1,
+                                                            "window_slice_multi_batched": 0})
+        reset_counts()
+        t0 = time.perf_counter()
+        status2, png2, _ = web_request(base, f"/render?latitude={lat}&longitude={lon}")
+        cached_ms = 1e3 * (time.perf_counter() - t0)
+        expect_counts("web /render from the cache", read_counts(), dict.fromkeys(counts["web_render"], 0))
+        pano = np.asarray(Image.open(io.BytesIO(png)))
+        with fe._render_lock:
+            ref = fe.app.engine.render_panorama(fe.app.data.camera, PanoramaSpec.fast(*WEB_RENDER)).color
+        if status != 200 or status2 != 200 or png2 != png or not np.array_equal(pano, ref):
+            raise AssertionError(f"web /render: HTTP {status}/{status2}, cached bytes equal {png2 == png}, the PNG "
+                                 f"equal to the engine's panorama {pano.shape == ref.shape and np.array_equal(pano, ref)}")
+
+        sid2 = json.loads(web_request(base, "/session", {})[1])["id"]
+        fe._sessions[sid2].controller.speed = APP_CAMERA_SPEED
+        one = in_flight_run(base, sid2, 1, WEB_PIPELINE_FRAMES)
+        two = in_flight_run(base, sid2, 2, WEB_PIPELINE_FRAMES)
+
+        log(f"web (phase 4i): /location with 9 tiles {location_ms:.1f} ms; first frame (the canvas build) "
+            f"{first_ms:.1f} ms; {WEB_FRAMES} fast {FAST_W}x{FAST_H} frames with labels (yuv420 wire, W held), "
+            f"request to JPEG bytes on the host clock: {ms_stats(fast_ms)}; K1/K2 per frame "
+            f"{counts['web_frame']['crossing_search']}/{counts['web_frame']['window_slice_multi']}, K1 (N, W, H) "
+            f"{sorted(set(k1.shapes))}; {WEB_EXACT_FRAMES} exact frames (interactive rung, rgb888): "
+            f"{ms_stats(exact_ms)}, K1/K2 {counts['web_frame_exact']['crossing_search']}/"
+            f"{counts['web_frame_exact']['window_slice_multi']}; yuv420_half {half_ms[0]:.1f} ms; every served "
+            f"image ({len(captured)}) equals the engine's render bit for bit; fast frame {colours} colours")
+        log("web fast frame stages (FrameTimer, server side; the rest of a request is HTTP, the pump and JSON):\n"
+            + stages)
+        log(f"web traced frame (utils.profiling.trace / summarize_trace): {len(ops)} device ops by name, "
+            f"{sum(ms for ms, _ in ops):.3f} ms in all; K1 {kernels['crossing_kernel'][0][0]:.4f} ms, K2 "
+            f"{kernels['window_slice_kernel'][0][0]:.4f} ms; the most: "
+            + "; ".join(f"{ms:.3f} ms {name[:50]}" for ms, name in ops[:5]))
+        log(f"web /render {WEB_RENDER[0]}x{WEB_RENDER[1]} panorama: {render_ms:.1f} ms, K1/K2 "
+            f"{counts['web_render']['crossing_search']}/{counts['web_render']['window_slice_multi']}; from the "
+            f"cache {cached_ms:.1f} ms; the PNG equals the engine's panorama bit for bit")
+        log(f"web in flight, one session, forced {FAST_W}x{FAST_H} frames: one request at a time {one[0]:.2f} "
+            f"frames/s ({WEB_PIPELINE_FRAMES} in {one[2]:.0f} ms, {one[1]} dropped); two in flight {two[0]:.2f} "
+            f"frames/s ({two[1]} answered 204, busy renderer); ratio {two[0] / one[0]:.2f}")
+        return counts
+    finally:
+        fe._httpd.shutdown()
+        thread.join(timeout=10)
+        fe.app.shutdown()
+        shutil.rmtree(trace_dir, ignore_errors=True)
+        del fe
+        gc.collect()
+        torch.cuda.empty_cache()
+
+
+def desktop_run(url, lat, lon):
+    """Phase 4i's desktop part: `DesktopFrontend` headless at the reference's
+    800 x 600 (the Tk shell needs a display); returns the launch counts."""
+    import gc
+
+    import torch
+
+    from topo_renderer_tpu_torch.config import Settings
+    from topo_renderer_tpu_torch.frontends.desktop import DesktopFrontend
+    from topo_renderer_tpu_torch.geo import GeoCoord
+
+    desk = DesktopFrontend(Settings(backend_url=url), width=DESKTOP_W, height=DESKTOP_H)
+    try:
+        desk.app.camera_controller.speed = APP_CAMERA_SPEED
+        t0 = time.perf_counter()
+        desk.app.start(GeoCoord(lat, lon))
+        desk.app.wait_for_terrain(timeout=APP_TIMEOUT_S)
+        desk.app.background.drain(timeout=APP_TIMEOUT_S)
+        desk.app.pump_events()
+        first = desk.render_frame()  # builds the streaming canvas
+        first_ms = 1e3 * (time.perf_counter() - t0)
+        desk.feed_key("w", True)
+        desk.render_frame()
+        frames, cams, ms = [], [], []
+        with K1Shapes() as k1:
+            for i in range(DESKTOP_FRAMES):
+                reset_counts()
+                t0 = time.perf_counter()
+                frames.append(desk.render_frame())
+                ms.append(1e3 * (time.perf_counter() - t0))
+                counts = read_counts()
+                expect_counts(f"desktop frame {i}", counts, {"crossing_search": 1, "window_slice_multi": 1,
+                                                            "window_slice_multi_batched": 0})
+                cams.append(desk.app.data.camera)
+        status = desk.drain_notifications()
+        for i, (img, cam) in enumerate(zip(frames, cams)):
+            want = desk.app.engine.render(cam, DESKTOP_W, DESKTOP_H, fast=True, host_copy=False).color
+            if img is None or img.shape != (DESKTOP_H, DESKTOP_W, 3) or not np.array_equal(img, want):
+                raise AssertionError(f"desktop frame {i}: differs from the engine's render")
+        colours = len(np.unique(frames[-1].reshape(-1, 3), axis=0))
+        if first is None or colours <= 200:
+            raise AssertionError(f"desktop: first frame {first is not None}, {colours} colours")
+        log(f"desktop (phase 4i, headless core; the Tk shell was not run): start to first {DESKTOP_W}x{DESKTOP_H} "
+            f"frame (fetch, canvas build) {first_ms:.0f} ms; {DESKTOP_FRAMES} `render_frame` calls with W held: "
+            f"{ms_stats(ms)}, K1/K2 {counts['crossing_search']}/{counts['window_slice_multi']} per frame, K1 "
+            f"(N, W, H) {sorted(set(k1.shapes))}; each frame equals the engine's render bit for bit; "
+            f"{colours} colours; status line {status!r}")
+        return {"desktop_frame": counts}
+    finally:
+        desk.app.shutdown()
+        del desk
+        gc.collect()
+        torch.cuda.empty_cache()
+
+
+def frontends_path():
+    """Phase 4i: the port's `BackendServer` serves phase 4h's 9 GeoTIFFs on
+    127.0.0.1; the web frontend on CUDA (a thread of this process) answers
+    `/location`, `/session`, fast, exact and yuv420_half frames, `/render`
+    and its cache, then one and two requests in flight; then the desktop
+    frontend's headless core. Returns the launch counts by path name."""
+    import shutil
+    import tempfile
+    from pathlib import Path
+
+    from topo_renderer_tpu_torch.backend.server import BackendServer
+    from topo_renderer_tpu_torch.config import Settings
+
+    root = Path(tempfile.mkdtemp(prefix="topo_backend_"))
+    server = None
+    try:
+        write_backend_data(root, STREAM_LAT, STREAM_LON)
+        server = BackendServer(Settings(address="127.0.0.1", port=0, data_dir=str(root)))
+        server.start()
+        lat, lon = STREAM_LAT + 1.5, STREAM_LON + 1.5
+        counts = web_frontend_run(server.url, lat, lon)
+        counts.update(desktop_run(server.url, lat, lon))
+        return counts
+    finally:
+        if server is not None:
+            server.stop()
+        shutil.rmtree(root, ignore_errors=True)
+
+
+# ---- phase 4j: the host mosaic build -----------------------------------------
+
+def split_tables(m):
+    """(heights, packed normals): name -> int32 words on the device."""
+    tables = mosaic_tables(m)
+    heights, normals = {}, {}
+    for name, t in tables.items():
+        if name.startswith(("attr_packed_flat", "mip_attr_flat")):
+            heights[name], normals[name] = t[:, 0], t[:, 1]
+        elif name.startswith("cell_heights_flat"):
+            heights[name], normals[name] = t[:, :4], t[:, 4:]
+        elif name.startswith("win_attr_2d"):
+            heights[name], normals[name] = t[0], t[1]
+        else:
+            heights[name] = t
+    return heights, normals
+
+
+def compare_builds(host, device):
+    """The host build against the device build: every height table bit for
+    bit; packed normals within one code per 10-bit channel. Returns (tables
+    equal, the largest code difference, the share of texels off by one)."""
+    import torch
+
+    hh, hn = split_tables(host)
+    dh, dn = split_tables(device)
+    differ = [k for k in dh if hh[k].shape != dh[k].shape or not torch.equal(hh[k], dh[k])]
+    if hh.keys() != dh.keys() or differ or not np.array_equal(host.host.valid, device.host.valid):
+        raise AssertionError(f"host build: height tables differ from the device build: {differ}")
+    worst, off, total = 0, 0, 0
+    for k in dn:
+        a, b = hn[k].long(), dn[k].long()
+        d = torch.stack([((a >> s) & 0x3FF) - ((b >> s) & 0x3FF) for s in (0, 10, 20)]).abs()
+        worst = max(worst, int(d.max()))
+        off += int((d > 0).any(dim=0).sum())
+        total += a.numel()
+    share = off / total
+    if worst > 1 or share >= 0.02:
+        raise AssertionError(f"host build: packed normals {worst} codes apart on {share:.4%} of texels")
+    return len(dh), worst, share
+
+
+def host_build_path():
+    """Phase 4j: `RenderEngine(streaming=True, device_mosaic_build=False)` on
+    the streaming scene's 3 x 3 tiles (a 6144^2 canvas): its first build
+    (`build_mosaic(on_device=False)`, timed, with its numpy tables apart),
+    a device build of the same tiles on the same canvas (timed) and the two
+    compared, one slot update, then a fast (K1 1, K2 1) and an exact frame
+    (K1 2) with 0 host syncs inside each. Returns the launch counts."""
+    import dataclasses
+
+    import torch
+
+    from topo_renderer_tpu_torch.models import scene
+    from topo_renderer_tpu_torch.render import engine as engine_mod
+
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    engine = engine_mod.RenderEngine(streaming=True, device_mosaic_build=False)
+    for lat in range(STREAM_LAT, STREAM_LAT + 3):
+        for lon in range(STREAM_LON, STREAM_LON + 3):
+            engine.add_terrain(*make_tile(lat, lon))
+    clock = StageClock()
+    clock.wrap(engine_mod, "build_mosaic", "build_mosaic", sync=True)
+    clock.wrap(scene, "_host_mosaic_tables", "host tables")
+    clock.wrap(scene, "_device_mosaic_tables", "device tables", sync=True)
+    try:
+        m = engine.mosaic
+        host_ms, tables_ms = clock.ms("build_mosaic"), clock.ms("host tables")
+        if clock.ms("device tables") or len(clock.spans["host tables"]) != 1:
+            raise AssertionError("host build: the engine did not take the host build")
+        peak = torch.cuda.max_memory_allocated() - base
+        t0 = time.perf_counter()
+        device = slot_order_build(engine)
+        torch.cuda.synchronize()
+        device_ms = 1e3 * (time.perf_counter() - t0)
+    finally:
+        clock.restore()
+    n_tables, worst, share = compare_builds(m, device)
+    del device
+    torch.cuda.empty_cache()
+    log(f"host build (phase 4j): {engine._canvas[2]}x{engine._canvas[3]} canvas of 9 tiles: "
+        f"build_mosaic(on_device=False) {host_ms:.0f} ms host clock (numpy and CPU-tensor tables {tables_ms:.0f} ms, "
+        f"the assembly and the copy to the card the rest), peak device memory {peak / 1e9:.2f} GB above the "
+        f"phase's start; the device build of the same canvas {device_ms:.0f} ms; {n_tables} height tables bit-equal, "
+        f"packed normals at most {worst} code apart on {share:.5%} of texels")
+
+    counts = {}
+    engine.add_terrain(*make_tile(STREAM_LAT + 1, STREAM_LON + 3))
+    if engine._dirty or [op for op, *_ in engine._pending] != ["add"]:
+        raise AssertionError("host build: an add inside the canvas was not queued as a slot update")
+    reset_counts()
+    t0 = time.perf_counter()
+    syncs = host_syncs(lambda: engine.mosaic)
+    update_ms = 1e3 * (time.perf_counter() - t0)
+    expect_counts("host build slot update", read_counts(), dict.fromkeys(read_counts(), 0))
+    cam = camera_at(STREAM_LAT + 1.4, STREAM_LON + 2.3, 300.0)
+    cam = dataclasses.replace(cam, yaw=yaw_toward(cam, 1.2), pitch=0.05)
+    log(f"host build: one slot update on the host-built canvas {update_ms:.1f} ms host clock, {len(syncs)} host "
+        f"syncs (the bounding sphere's hmax read)")
+    for name, kw, want in (("host_build_fast_frame", dict(n_steps=512, fast=True),
+                            {"crossing_search": 1, "window_slice_multi": 1}),
+                           ("host_build_exact_frame", dict(EXACT_KW, exact_quality="full"),
+                            {"crossing_search": 2, "window_slice_multi": 0})):
+        def frame():
+            return engine.render(cam, FAST_W, FAST_H, with_labels=False, host_copy=False, u8_host=False, **kw)
+
+        frame()
+        torch.cuda.synchronize()
+        reset_counts()
+        res = frame()
+        torch.cuda.synchronize()
+        counts[name] = read_counts()
+        expect_counts(name, counts[name], dict(want, window_slice_multi_batched=0))
+        syncs = host_syncs(frame)
+        hit = float(res.hit.float().mean())
+        if syncs or not 0.0 < hit < 1.0 or not bool(torch.isfinite(res.color_linear).all()):
+            raise AssertionError(f"{name}: {len(syncs)} host syncs at {syncs[:4]}, hit {hit:.3f}")
+        log(f"{name}: {FAST_W}x{FAST_H} on the host-built, updated canvas: hit {hit:.3f}, host syncs inside a "
+            f"frame 0, launches {counts[name]}")
+    del engine, m, res
+    torch.cuda.empty_cache()
+    return counts
+
+
 def small_scene_agreement():
     """One small scene on the card and on the CPU (plain versions): the
     same frame up to float rounding. Dither seeds hash world positions, so
@@ -2008,6 +2546,8 @@ def main(argv) -> int:
     torch.cuda.empty_cache()
     per_call.update(streaming_path())
     per_call.update(host_runtime_path())
+    per_call.update(frontends_path())
+    per_call.update(host_build_path())
     device_times(kernels)
     # ``launches``: one call of the path each kernel serves (K3 and K1: the
     # batch; K2: the single panorama); every path's count is in

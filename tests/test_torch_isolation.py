@@ -47,6 +47,10 @@ def test_no_forbidden_module_after_import():
         "from topo_renderer_tpu_torch.data.tiff import read_geotiff, write_geotiff\n"
         "from topo_renderer_tpu_torch.data.background import BackgroundRunner\n"
         "from topo_renderer_tpu_torch import native\n"
+        "from topo_renderer_tpu_torch.frontends.web.server import WebFrontend, main as web_main\n"
+        "from topo_renderer_tpu_torch.frontends.desktop import DesktopFrontend\n"
+        "from topo_renderer_tpu_torch.utils.profiling import FrameTimer, summarize_trace, trace\n"
+        "from topo_renderer_tpu_torch.models.scene import Scene, build_height_mips, build_max_mips\n"
         "import numpy as np\n"
         "blob = write_geotiff(np.ones((3, 4), np.float32), (1.0, 1.0, 0.0), (0.0,) * 6)\n"
         "assert read_geotiff(blob)[0].shape == (3, 4)\n"

@@ -134,11 +134,16 @@ class _Handler(BaseHTTPRequestHandler):
             self.end_headers()
 
 
-class _HTTPServer(ThreadingHTTPServer):
-    # socketserver's listen backlog of 5 overflows when a client's 8 fetch
-    # workers open their tile and peaks connections at once; Linux then
-    # drops the SYN and the client resends it after 1 s, so a tile stalls
-    # for a second or more. The JAX package's server keeps the 5.
+class BacklogHTTPServer(ThreadingHTTPServer):
+    """A threading HTTP server with a listen backlog of 128.
+
+    socketserver's backlog of 5 overflows when clients open many
+    connections at once (a fetch client's 8 workers open their tile and
+    peaks connections together; browser tabs keep two frames and a status
+    poll each); Linux then drops the SYN and the client resends it after
+    1 s, so the request stalls for a second or more. The JAX package's
+    servers keep the 5."""
+
     request_queue_size = 128
 
 
@@ -148,7 +153,7 @@ class BackendServer:
     def __init__(self, settings: Settings | None = None):
         self.settings = settings or Settings.load()
         handler = type("BoundHandler", (_Handler,), {"settings": self.settings})
-        self._httpd = _HTTPServer(
+        self._httpd = BacklogHTTPServer(
             (self.settings.address, int(self.settings.port)), handler
         )
         self._thread: threading.Thread | None = None

@@ -303,12 +303,13 @@ def apply_slot_update(
     ``mosaic``'s tensors. Returns the mosaic with its new ``hmax`` (the
     device max over the heights), carrying ``mosaic.host``.
 
-    Args after ``mosaic``, all on its device: ``blk`` (f32[th, tw] heights
-    of the slot region, POISON outside tiles), ``oy, ox`` (its NW texel,
-    ints), ``owner_slices`` (per level 0..L, the integer owner windows that
-    `attr_slice_geometry` bounds), ``rot_flat`` (f32[cap*9] slot rotations),
-    ``geo`` (f32[4] lon_nw, lat_nw, ps_x, ps_y, as the build's); ``th, tw``
-    the block's shape, and the normal-build flags.
+    Args after ``mosaic``, on its device but for ``geo``: ``blk``
+    (f32[th, tw] heights of the slot region, POISON outside tiles), ``oy,
+    ox`` (its NW texel, ints), ``owner_slices`` (per level 0..L, the integer
+    owner windows that `attr_slice_geometry` bounds), ``rot_flat``
+    (f32[cap*9] slot rotations), ``geo`` (f32[4] lon_nw, lat_nw, ps_x, ps_y
+    on the host, as the build's); ``th, tw`` the block's shape, and the
+    normal-build flags.
     """
     h_m, w_m = mosaic.shape
     check_halvable(mosaic.shape, mosaic.mip_shapes)

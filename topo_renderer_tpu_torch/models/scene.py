@@ -6,10 +6,13 @@ identity survives as a per-texel owner index that applies each tile's own
 normal->world rotation (`src/render/data.rs:120-127`).
 
 ``build_mosaic`` assembles the raw heights on the host (numpy, as the JAX
-package does) and builds every derived table on the engine's device in
-PyTorch (:func:`_device_mosaic_tables`, the JAX package's device build):
-normals, packed attribute rows, the average and dilated-max mip pyramids,
-the 2-D window tables and the per-cell corner rows.
+package does) and builds every derived table either on the engine's device
+in PyTorch (:func:`_device_mosaic_tables`, the JAX package's device build)
+or, with ``on_device=False``, on the host in numpy
+(:func:`_host_mosaic_tables`, the JAX package's host build, which the
+goldens' scenes take): normals, packed attribute rows, the average and
+dilated-max mip pyramids, the 2-D window tables and the per-cell corner
+rows.
 
 Packed normals are 10-bit codes in 32-bit words that travel bitcast to
 float32 (`attr_packed_flat[:, 1]`, `win_attr_2d[l][1]`, the last four
@@ -29,7 +32,7 @@ import torch
 from topo_renderer_tpu_torch.data.coordinate_transform import CoordinateTransform
 from topo_renderer_tpu_torch.geo import GeoLocation
 from topo_renderer_tpu_torch.models.uniforms import normal_to_world_rotation
-from topo_renderer_tpu_torch.ops.normals import compute_normals_soa
+from topo_renderer_tpu_torch.ops.normals import compute_normals, compute_normals_soa
 
 # Texels outside any loaded tile carry this height: no ray can hit a
 # triangle with a poisoned corner (`terrain_renderer.rs:361-363`).
@@ -143,6 +146,56 @@ def _texel_m_hint(ps_y_deg: float) -> float:
     return float(f"{abs(float(ps_y_deg)) * 111_132.0:.3g}")
 
 
+def build_max_mips(heights: np.ndarray, shapes, return_raw: bool = False):
+    """Dilated max-height pyramid matching ``shapes`` (numpy, a copy of the
+    JAX package's): each level-L texel bounds every height within its 2^L
+    footprint plus a 1-texel ring; odd remainder rows/columns fold into the
+    last texel's bound. ``return_raw`` also returns the undilated pyramid."""
+    out = []
+    raw = []
+    cur = heights
+    for (h2, w2) in shapes:
+        ch = cur[: 2 * h2, : 2 * w2]
+        pooled = ch.reshape(h2, 2, w2, 2).max(axis=(1, 3))
+        if cur.shape[0] > 2 * h2:
+            pooled[-1] = np.maximum(pooled[-1], cur[2 * h2 :, : 2 * w2].reshape(-1, w2, 2).max(axis=(0, 2)))
+        if cur.shape[1] > 2 * w2:
+            pooled[:, -1] = np.maximum(pooled[:, -1], cur[: 2 * h2, 2 * w2 :].reshape(h2, 2, -1).max(axis=(1, 2)))
+        p = np.pad(pooled, 1, mode="edge")
+        dil = pooled
+        for dy in (0, 1, 2):
+            for dx in (0, 1, 2):
+                dil = np.maximum(dil, p[dy : dy + h2, dx : dx + w2])
+        out.append(dil.astype(np.float32))
+        raw.append(pooled.astype(np.float32))
+        cur = pooled
+    return (out, raw) if return_raw else out
+
+
+def build_height_mips(heights: np.ndarray, n_levels: int | None = None):
+    """Average-pooled height pyramid (numpy, a copy of the JAX package's):
+    poisoned texels stay poisoned, and anything an average touched with a
+    poisoned texel is poisoned again. Levels stop before a dimension falls
+    below 4 texels. Returns (mips, shapes)."""
+    mips = []
+    shapes = []
+    cur = heights
+    level = 0
+    while True:
+        h, w = cur.shape
+        if (n_levels is not None and level >= n_levels) or min(h, w) < 8:
+            break
+        h2, w2 = h // 2, w // 2
+        pooled = cur[: 2 * h2, : 2 * w2].reshape(h2, 2, w2, 2).mean(axis=(1, 3))
+        pooled = np.maximum(pooled, np.float32(POISON_HEIGHT)).astype(np.float32)
+        pooled[pooled < 0.1 * POISON_HEIGHT] = POISON_HEIGHT
+        mips.append(pooled)
+        shapes.append((h2, w2))
+        cur = pooled
+        level += 1
+    return mips, shapes
+
+
 def _pool_mean(c: torch.Tensor) -> torch.Tensor:
     # Mip pooling order: the JAX build sums 0.25*((a+b)+(c+d))
     # (`scene.py:397`); another association changes low bits and the mips
@@ -179,7 +232,8 @@ def world_packed(h_for_normals, v, owner_l, rot_flat, geo, level: int, *, quanti
     """World-space packed normal words (int32) of one pyramid level: the
     level's normals rotated by each texel's owning tile and packed 10/10/10.
     ``owner_l`` indexes the tiles of ``rot_flat`` f32[T*9]; ``geo`` f32[4] =
-    (lon_nw, lat_nw, ps_x, ps_y) of the mosaic; ``row_span`` as in
+    (lon_nw, lat_nw, ps_x, ps_y) of the mosaic, on the host (the per-row
+    terms are host work, `compute_normals_soa`); ``row_span`` as in
     `compute_normals_soa` (a slot update's slice of the level)."""
     lon_nw, lat_nw, ps_x, ps_y = geo[0], geo[1], geo[2], geo[3]
     s = float(2**level)
@@ -226,7 +280,7 @@ def _device_mosaic_tables(
 
     Args: ``heights_raw`` f32[H, W] with zeros outside ``valid``; ``owner``
     int64[H, W] owning-tile index; ``rot_flat`` f32[T*9] row-major tile
-    rotations; ``geo`` f32[4] = (lon_nw, lat_nw, ps_x, ps_y).
+    rotations; ``geo`` f32[4] = (lon_nw, lat_nw, ps_x, ps_y), a CPU tensor.
     ``keep_hmax_raw`` also returns the undilated max pyramid (``mip_hmax_raw``)
     that slot updates read.
     """
@@ -306,6 +360,103 @@ def _device_mosaic_tables(
     )
 
 
+def _host_mosaic_tables(
+    heights_raw: np.ndarray,
+    valid: np.ndarray,
+    owner: np.ndarray,
+    rotations: np.ndarray,
+    geo,
+    *,
+    quantize_normals: bool,
+    correct_axes: bool,
+    exact_tables: bool,
+    window_table_min: int,
+    keep_hmax_raw: bool = False,
+):
+    """Derived mosaic tables on the host, as numpy arrays (port of the JAX
+    package's host build, `scene.py:700-822`). The normals come from
+    :func:`compute_normals` on CPU tensors, as JAX's come from its eager
+    `compute_normals`; rotation, packing, pyramids and cell rows are the
+    same numpy code. Packed words are uint32 arrays until they are laid
+    into float32 tables as bit patterns (``.view``), never as values.
+
+    Args as :func:`_device_mosaic_tables`, but numpy, ``rotations``
+    f32[T, 3, 3] and ``geo`` the Python floats (lon_nw, lat_nw, ps_x,
+    ps_y): the level anchors are computed in float64, as JAX's host build
+    does, and rounded to float32 inside `compute_normals`.
+    """
+    lon_nw, lat_nw, ps_x, ps_y = geo
+
+    def world_packed_np(h, v, owner_l, s, model_point):
+        n = compute_normals(
+            torch.from_numpy(h), (ps_x * s, ps_y * s), raster_point=(0.0, 0.0), model_point=model_point,
+            valid=torch.from_numpy(v), quantize=quantize_normals, correct_axes=correct_axes,
+        ).numpy()
+        # Rotate to world space per owning tile.
+        nw = np.empty_like(n)
+        for idx in range(len(rotations)):
+            mask = owner_l == idx
+            if mask.any():
+                nw[mask] = n[mask] @ rotations[idx].T
+        packed = pack_normals(nw)
+        packed[~v] = 0  # slot-order-independent bytes for invalid texels
+        return packed
+
+    packed0 = world_packed_np(heights_raw, valid, owner, 1.0, (lon_nw, lat_nw))
+    heights = heights_raw.copy()
+    heights[~valid] = POISON_HEIGHT
+
+    mips, mip_shapes = build_height_mips(heights)
+    attr = np.stack([heights.reshape(-1), packed0.reshape(-1).view(np.float32)], axis=-1)
+    win_tables = [
+        np.stack([heights, packed0.view(np.float32)], axis=0) if heights.size > window_table_min else None
+    ]
+    mip_attrs = []
+    for level, (mh, (h_l, w_l)) in enumerate(zip(mips, mip_shapes), start=1):
+        s = float(2**level)
+        off = (s - 1.0) / 2.0
+        v_l = mh > 0.5 * POISON_HEIGHT
+        packed_l = world_packed_np(
+            np.where(v_l, mh, 0.0).astype(np.float32), v_l, owner[:: 2**level, :: 2**level][:h_l, :w_l], s,
+            (lon_nw + ps_x * off, lat_nw - ps_y * off),
+        )
+        mip_attrs.append(np.stack([mh.reshape(-1), packed_l.reshape(-1).view(np.float32)], axis=-1))
+        win_tables.append(np.stack([mh, packed_l.view(np.float32)], axis=0) if mh.size > window_table_min else None)
+
+    if exact_tables:
+        def shifts_np(x):
+            e = np.concatenate([x[:, 1:], x[:, -1:]], axis=1)
+            s_ = np.concatenate([x[1:], x[-1:]], axis=0)
+            se = np.concatenate([s_[:, 1:], s_[:, -1:]], axis=1)
+            return x, e, s_, se
+
+        cell = np.stack(shifts_np(heights) + shifts_np(packed0.view(np.float32)), axis=-1).reshape(-1, 8)
+    else:
+        cell = np.zeros((1, 8), np.float32)
+
+    hmax_dil, hmax_raw = build_max_mips(heights, mip_shapes, return_raw=True)
+    return dict(
+        heights=heights.reshape(-1),
+        attr=attr,
+        cell=cell,
+        mips=tuple(m.reshape(-1) for m in mips),
+        mip_attrs=tuple(mip_attrs),
+        mip_hmax=tuple(m.reshape(-1) for m in hmax_dil),
+        mip_hmax_raw=tuple(m.reshape(-1) for m in hmax_raw) if keep_hmax_raw else (),
+        win_attr_2d=tuple(win_tables),
+    )
+
+
+def _words_to_device(a, device):
+    """A numpy float32 table onto ``device`` as 32-bit words: packed
+    normals in it are denormal bit patterns, so it crosses as int32."""
+    if a is None:
+        return None
+    if isinstance(a, tuple):
+        return tuple(_words_to_device(x, device) for x in a)
+    return torch.from_numpy(np.ascontiguousarray(a).view(np.int32)).to(device).view(torch.float32)
+
+
 def _resample_tile_lon(tile: TerrainTile, ps_fine: float, lon_anchor: float) -> TerrainTile:
     """Linearly resample a tile's rows onto the mosaic's fine longitude
     lattice (COP-90 bands above 50°N have wider longitude spacing)."""
@@ -368,6 +519,7 @@ def build_mosaic(
     device=None,
     canvas: tuple | None = None,
     keep_hmax_raw: bool = False,
+    on_device: bool = True,
 ) -> TerrainMosaic:
     """Assemble decoded tiles into one stitched mosaic on ``device``.
 
@@ -375,7 +527,11 @@ def build_mosaic(
     latitude pixel scale, coarser longitude bands are resampled onto the
     finest lattice, texels land on a common grid with seam texels written
     once, and each texel's rotation comes from the tile owning its cell.
-    The derived tables are then built on the device.
+    The derived tables are then built on the device, or with
+    ``on_device=False`` on the host (numpy; normals on CPU tensors) and
+    copied to the device. The JAX package defaults to its host build; here
+    the device build is the default, and the host build's tables equal
+    it but for packed normals, within one 10-bit code.
 
     ``canvas=(lon_nw, lat_nw, h_m, w_m)`` pins the raster to a frame larger
     than the tiles' box (texels outside every tile stay poisoned); a tile
@@ -460,18 +616,26 @@ def build_mosaic(
 
     model_point = np.array([lon_nw, lat_nw], np.float32)
     pixel_scale = np.array([abs(ps_x), abs(ps_y)], np.float32)
-    arrs = _device_mosaic_tables(
-        dev(heights),
-        dev(valid),
-        dev(owner, torch.int64),
-        dev(rotations.reshape(-1)),
-        dev(np.asarray([lon_nw, lat_nw, ps_x, ps_y], np.float32)),
+    flags = dict(
         quantize_normals=bool(quantize_normals),
         correct_axes=bool(correct_axes),
         exact_tables=bool(exact_tables),
         window_table_min=int(window_table_min),
         keep_hmax_raw=bool(keep_hmax_raw),
     )
+    if on_device:
+        arrs = _device_mosaic_tables(
+            dev(heights),
+            dev(valid),
+            dev(owner, torch.int64),
+            dev(rotations.reshape(-1)),
+            torch.tensor([lon_nw, lat_nw, ps_x, ps_y], dtype=torch.float32),
+            **flags,
+        )
+    else:
+        host = _host_mosaic_tables(heights, valid, owner, rotations, (lon_nw, lat_nw, ps_x, ps_y), **flags)
+        arrs = {k: _words_to_device(v, device) for k, v in host.items()}
+        del host
     return TerrainMosaic(
         heights_flat=arrs["heights"],
         attr_packed_flat=arrs["attr"],
@@ -520,3 +684,13 @@ def mosaic_from_arrays(
         host=MosaicHostData(None, None, None, arrays["model_point"], arrays["pixel_scale"]),
         texel_m=float(texel_m),
     )
+
+
+@dataclasses.dataclass(frozen=True)
+class Scene:
+    """Everything a render call needs (reference: `ApplicationData` +
+    `Uniforms`, `src/data/application_data.rs:16-45`)."""
+
+    mosaic: TerrainMosaic
+    camera: Any  # models.camera.Camera
+    pixelize_n: Any = 100.0  # disabled by default (`application_data.rs:31`)

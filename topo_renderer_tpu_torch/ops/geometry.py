@@ -65,3 +65,27 @@ def ecef_from_geo(height, longitude_deg, latitude_deg):
         [r * cos_lat * torch.cos(lon), r * cos_lat * torch.sin(lon), r * torch.sin(lat)],
         dim=-1,
     )
+
+
+def geo_from_ecef(p):
+    """Inverse mapping: ECEF [..., 3] -> (height, lon°, lat°); the norm sums
+    its squares in index order."""
+    p = torch.as_tensor(p, dtype=torch.float32)
+    r = torch.sqrt(p[..., 0] * p[..., 0] + p[..., 1] * p[..., 1] + p[..., 2] * p[..., 2])
+    lat = degrees(torch.asin(torch.clamp(p[..., 2] / r, -1.0, 1.0)))
+    lon = degrees(torch.atan2(p[..., 1], p[..., 0]))
+    return r - R0, lon, lat
+
+
+def local_frame(lon_deg, lat_deg):
+    """Orthonormal (east, north, up) at a geographic position, ECEF axes
+    (the reference gets the same from its camera's quaternions,
+    `camera.rs:99-116`)."""
+    lon = radians(torch.as_tensor(lon_deg, dtype=torch.float32))
+    lat = radians(torch.as_tensor(lat_deg, dtype=torch.float32))
+    sin_lon, cos_lon = torch.sin(lon), torch.cos(lon)
+    sin_lat, cos_lat = torch.sin(lat), torch.cos(lat)
+    east = torch.stack([-sin_lon, cos_lon, torch.zeros_like(sin_lon)], dim=-1)
+    north = torch.stack([-sin_lat * cos_lon, -sin_lat * sin_lon, cos_lat], dim=-1)
+    up = torch.stack([cos_lat * cos_lon, cos_lat * sin_lon, sin_lat], dim=-1)
+    return east, north, up

@@ -1,26 +1,29 @@
 """Terrain surface normals: latitude-corrected central differences.
 
-Port of `topo_renderer_tpu/ops/normals.py::compute_normals_soa`, the
-replacement for the reference's three WGSL normal compute shaders
-(`compute_normals_shader.wgsl:22-58` and its edge/corner variants): once the
-tiles form one mosaic, one dense central difference reproduces interior and
-seams alike. Reference semantics kept exactly: metric spacing with the
-cos-latitude factor on the *latitude* spacing (``correct_axes=False``),
-normal = normalize(cross(right-left, top-bottom)), the Rgba8Unorm round trip,
-and the zero-encoded normal for texels without a complete 4-neighbourhood.
+Port of `topo_renderer_tpu/ops/normals.py` (`compute_normals_soa` and
+`compute_normals`), the replacement for the reference's three WGSL normal
+compute shaders (`compute_normals_shader.wgsl:22-58` and its edge/corner
+variants): once the tiles form one mosaic, one dense central difference
+reproduces interior and seams alike. Reference semantics kept exactly:
+metric spacing with the cos-latitude factor on the *latitude* spacing
+(``correct_axes=False``), normal = normalize(cross(right-left,
+top-bottom)), the Rgba8Unorm round trip, and the zero-encoded normal for
+texels without a complete 4-neighbourhood.
 """
 
 from __future__ import annotations
 
 import torch
 
-from topo_renderer_tpu_torch.ops.geometry import R0, f32, radians
+from topo_renderer_tpu_torch.ops.geometry import R0, radians, to_device
 
 
 def quantize_unorm8(v):
     """Rgba8Unorm storage-texture round trip: clamp to [0,1], round to the
-    nearest of 256 levels."""
-    return torch.round(torch.clamp(v, 0.0, 1.0) * 255.0) / 255.0
+    nearest of 256 levels. The level is divided by 255 in float64 and
+    rounded once: PyTorch's CUDA kernel divides a float32 tensor by a scalar
+    as a multiply by its reciprocal, which misses k / 255 by an ulp."""
+    return (torch.round(torch.clamp(v, 0.0, 1.0) * 255.0).double() / 255.0).float()
 
 
 def _pad_edge(x: torch.Tensor) -> torch.Tensor:
@@ -42,11 +45,21 @@ def compute_normals_soa(
     """Decoded normal planes ``(nx, ny, nz)`` of ``heights f32[H, W]``.
 
     ``pixel_scale``/``model_point`` entries may be Python numbers or float32
-    scalar tensors. Scalar-precision trap: the JAX package evaluates
-    ``jnp.float32(pixel_scale)`` and ``jnp.radians(ps_x) * R0``
-    (`normals.py:62-79`) in float32; doing them on Python floats (float64)
-    moves the metric spacing by an ulp and flips packed normal codes. So every
-    scalar step here runs on float32 tensors.
+    scalar tensors on the host (a CUDA scalar is read back). Scalar-precision
+    trap: the JAX package evaluates ``jnp.float32(pixel_scale)`` and
+    ``jnp.radians(ps_x) * R0`` (`normals.py:62-79`) in float32; doing them on
+    Python floats (float64) moves the metric spacing by an ulp and flips
+    packed normal codes. So every scalar step here runs on float32 tensors.
+
+    Device independence: a last bit before the u8 round trip can flip a
+    texel by one u8 step, four 10-bit codes once packed. So the per-row
+    spacing terms (one ``cos`` per row; CUDA documents ``cosf`` to 2 ulps)
+    are computed on the host in float32 and copied to ``heights``' device
+    (`to_device`: pinned, no host sync), and the square root and the
+    divisions run in float64, rounded once: PyTorch's CUDA float32 ``sqrt``
+    is not correctly rounded. Every other step is a correctly rounded
+    float32 operation on either device, so the normals on the card equal
+    the CPU's bit for bit.
 
     ``row_span=(y0, n)``: ``heights`` holds rows ``y0 .. y0 + H`` of a raster
     of ``n`` rows. The per-row spacing terms are then computed over all ``n``
@@ -56,12 +69,16 @@ def compute_normals_soa(
     """
     dev = heights.device
     h, w = heights.shape[-2], heights.shape[-1]
-    ps_x = f32(pixel_scale[0], dev)
-    ps_y = f32(pixel_scale[1], dev)
+
+    def host32(v):
+        return torch.as_tensor(v, dtype=torch.float32, device="cpu")
+
+    ps_x = host32(pixel_scale[0])
+    ps_y = host32(pixel_scale[1])
     y0, n_rows = (0, h) if row_span is None else row_span
 
-    rows = torch.arange(n_rows, dtype=torch.float32, device=dev)
-    lat_deg = (rows - f32(raster_point[1], dev)) * -ps_y + f32(model_point[1], dev)
+    rows = torch.arange(n_rows, dtype=torch.float32)
+    lat_deg = (rows - host32(raster_point[1])) * -ps_y + host32(model_point[1])
 
     x_m = radians(ps_x) * R0
     y_m = radians(ps_y) * R0
@@ -74,7 +91,7 @@ def compute_normals_soa(
         # (`compute_normals_shader.wgsl:39-40`).
         x_row = x_m.expand(cos_lat.shape)
         y_row = y_m * cos_lat
-    x_row, y_row = x_row[y0 : y0 + h], y_row[y0 : y0 + h]
+    x_row, y_row = (to_device(r[y0 : y0 + h].contiguous(), dev) for r in (x_row, y_row))
 
     hp = _pad_edge(heights)
     dhx = hp[..., 1:-1, 2:] - hp[..., 1:-1, :-2]  # h(right) - h(left)
@@ -86,8 +103,12 @@ def compute_normals_soa(
     nx = -2.0 * y_b * dhx
     ny = -2.0 * x_b * dhy
     nz = (4.0 * x_b * y_b).expand(dhx.shape)
-    nrm = torch.sqrt(nx * nx + ny * ny + nz * nz)
-    nx, ny, nz = nx / nrm, ny / nrm, nz / nrm
+    # The square root and the divisions in float64, each rounded once to
+    # float32: that is the correctly rounded float32 result (53 >= 2 * 24 + 2
+    # bits), which the CPU's float32 kernels give and PyTorch's CUDA float32
+    # sqrt misses by an ulp on ~0.6% of inputs.
+    nrm = torch.sqrt((nx * nx + ny * ny + nz * nz).double()).float().double()
+    nx, ny, nz = ((c.double() / nrm).float() for c in (nx, ny, nz))
 
     row_idx = torch.arange(h, device=dev).reshape(h, 1)
     col_idx = torch.arange(w, device=dev).reshape(1, w)
@@ -108,3 +129,23 @@ def compute_normals_soa(
         # Decode like the vertex shader: 2*texel - 1 (`render_shader.wgsl:66`).
         out.append(2.0 * encoded - 1.0)
     return tuple(out)
+
+
+def compute_normals(
+    heights: torch.Tensor,
+    pixel_scale,
+    raster_point,
+    model_point,
+    valid: torch.Tensor | None = None,
+    quantize: bool = True,
+    correct_axes: bool = False,
+):
+    """Per-texel decoded normals ``f32[H, W, 3]`` in the tile-local frame
+    (x=east, y=north, z=up): :func:`compute_normals_soa`'s planes stacked
+    on the last axis, as the vertex shader reads them back
+    (`render_shader.wgsl:66`)."""
+    nx, ny, nz = compute_normals_soa(
+        heights, pixel_scale, raster_point, model_point, valid=valid, quantize=quantize,
+        correct_axes=correct_axes,
+    )
+    return torch.stack([nx, ny, nz], dim=-1)

@@ -5,7 +5,9 @@ Port of `topo_renderer_tpu/ops/postprocess.py` (parity with
 Laplacian of linearized depth, final = mix(render, black,
 smoothstep(0.05, 0.15, contour / centre)); pixelization when
 ``pixelize_n < 99.99999``. Distance fog and the two-term atmosphere are the
-JAX package's extensions. Everything runs on single-channel [H, W] planes.
+JAX package's extensions. Everything runs on single-channel [H, W] planes;
+`postprocess`, `distance_fog` and `atmospheric_shading` are channels-last
+wrappers (``color[..., H, W, 3]``), as in the JAX package.
 """
 
 from __future__ import annotations
@@ -61,6 +63,17 @@ def postprocess_soa(channels, depth, pixelize_n=None):
     return tuple(c * (1.0 - mixf) for c in channels)
 
 
+def _planes(color):
+    color = torch.as_tensor(color, dtype=torch.float32)
+    return tuple(color[..., c] for c in range(color.shape[-1]))
+
+
+def postprocess(color, depth, pixelize_n=None):
+    """Channels-last wrapper of :func:`postprocess_soa`."""
+    out = postprocess_soa(_planes(color), torch.as_tensor(depth, dtype=torch.float32), pixelize_n)
+    return torch.stack(out, dim=-1)
+
+
 def distance_fog_soa(channels, distance, fog_color, density=1.0 / 80_000.0, sky_mask=None):
     f = 1.0 - torch.exp(-distance * density)
     out = []
@@ -92,3 +105,26 @@ def atmospheric_shading_soa(
             mixed = torch.where(sky_mask, c, mixed)
         out.append(mixed)
     return tuple(out)
+
+
+def distance_fog(color, distance, fog_color, density=1.0 / 80_000.0, sky_mask=None):
+    """Exponential distance fog on ``color[..., 3]`` (the JAX package's
+    extension, BASELINE config 2)."""
+    out = distance_fog_soa(_planes(color)[:3], torch.as_tensor(distance, dtype=torch.float32),
+                           fog_color, density, sky_mask)
+    return torch.stack(out, dim=-1)
+
+
+def atmospheric_shading(
+    color,
+    distance,
+    sky_color,
+    rayleigh_density=1.0 / 60_000.0,
+    mie_density=1.0 / 220_000.0,
+    sky_mask=None,
+):
+    """Two-term aerial perspective on ``color[..., 3]`` (the JAX package's
+    extension, BASELINE config 4)."""
+    out = atmospheric_shading_soa(_planes(color)[:3], torch.as_tensor(distance, dtype=torch.float32),
+                                  sky_color, rayleigh_density, mie_density, sky_mask)
+    return torch.stack(out, dim=-1)

@@ -337,3 +337,10 @@ def sample_attributes_cell(mosaic, gx, gy):
     nx, ny, nz = out
     ok = in_bounds & (h > 0.5 * INVALID_HEIGHT)
     return torch.where(ok, h, INVALID_HEIGHT), nx, ny, nz, ok
+
+
+def sample_attributes(mosaic, gx, gy):
+    """`sample_attributes_soa` with the normal stacked channels-last:
+    ``(h, n_world [..., 3], ok)``."""
+    h, nx, ny, nz, ok = sample_attributes_soa(mosaic, gx, gy)
+    return h, torch.stack([nx, ny, nz], dim=-1), ok

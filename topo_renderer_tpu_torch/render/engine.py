@@ -108,9 +108,15 @@ class RenderResult:
 class RenderEngine:
     _LAYOUT_MEMO_CAP = 8
 
-    def __init__(self, device=None, streaming: bool = False, geo_mesh=None):
+    def __init__(self, device=None, streaming: bool = False, geo_mesh=None, device_mosaic_build: bool = True):
         """``device``: where the mosaic lives and frames render; None means
         the CUDA device (and raises without one).
+
+        ``device_mosaic_build``: full builds make the derived tables
+        (normals, packing, pyramids, windows, cell rows) on the device; with
+        False they are made on the host in numpy and copied over
+        (``build_mosaic(on_device=False)``, the goldens' build). Slot
+        updates run on the device either way.
 
         ``streaming``: tile changes update the mosaic one slot at a time (the
         reference's `add_terrain`/`unload_terrain` touch one tile's buffers,
@@ -130,6 +136,7 @@ class RenderEngine:
         self._mosaic: TerrainMosaic | None = None
         self._dirty = True
         self._streaming = bool(streaming)
+        self._device_mosaic_build = bool(device_mosaic_build)
         self._window_table_min = 262_144  # build_mosaic's default; tests lower it
         self._canvas = None  # (lon_nw, lat_nw, h_m, w_m, ps_x, ps_y)
         self._slots: dict[GeoLocation, tuple] = {}  # loc -> (slot, oy, ox, th, tw)
@@ -244,7 +251,7 @@ class RenderEngine:
         lon_nw, lat_nw, h_m, w_m, ps_x, ps_y = self._canvas
         host = self._mosaic.host
         dev = self.device
-        geo = f32(np.asarray([lon_nw, lat_nw, ps_x, ps_y], np.float32), dev)
+        geo = f32(np.asarray([lon_nw, lat_nw, ps_x, ps_y], np.float32))  # host values, as the build's
         while self._pending:
             op, location, (slot, oy, ox, th, tw) = self._pending.pop(0)
             if op == "add":
@@ -316,6 +323,7 @@ class RenderEngine:
         self._mosaic = build_mosaic(
             tiles, canvas=(lon_nw, lat_nw, h_m, w_m), keep_hmax_raw=True,
             window_table_min=self._window_table_min, device=self.device,
+            on_device=self._device_mosaic_build,
         )
         self._slots = {}
         self._rotations = np.zeros((self._rot_cap, 3, 3), np.float32)
@@ -346,7 +354,8 @@ class RenderEngine:
                 self._slots = {}
                 self._mosaic = None  # free the old tables before building anew
                 order = sorted(self._tiles.keys())
-                self._mosaic = build_mosaic([self._tiles[k] for k in order], device=self.device)
+                self._mosaic = build_mosaic([self._tiles[k] for k in order], device=self.device,
+                                            on_device=self._device_mosaic_build)
             self._dirty = False
         elif self._pending:
             self._apply_pending()
