@@ -100,7 +100,23 @@ Phases (any failure exits non-zero):
         numpy tables apart, against a device build of the same canvas
         (height tables bit for bit, packed normals within one code on
         under 2% of texels); one slot update, then a fast (K1 1, K2 1) and
-        an exact frame (K1 2), each with 0 host syncs inside the frame.
+        an exact frame (K1 2), each with 0 host syncs inside the frame;
+     k. multi-device rendering, every band and shard on cuda:0, so that it
+        runs on one card (transfers between cards are not exercised):
+        `RenderEngine(geo_mesh=Mesh(["cuda:0"] * 4, ("geo",)))` with the
+        100 tiles and their peaks (each band's resident bytes, the
+        replicated bytes, the peak memory); its config 6 fast frame (K1 1,
+        K2 4: one per band), config 1 exact frame at both budgets (K1 2),
+        config 4 panorama (K1 1, K2 4) and config 5 batch of 256 eyes (K1
+        256, K3 4) must equal the replicated engine's bit for bit, with
+        host-clock and device-only ms and 0 host syncs in the frames;
+        streaming under a 2-band geo mesh on phase 4g's tiles (six slot
+        updates; the bands equal `shard_mosaic` of a replicated engine's
+        updated tables and the frames after them its frames, bit for
+        bit); `render_batch_sharded` over dp x az = 2 x 2, 8 eyes at
+        1024 x 256 (K1/K2 16/16), against the single-device panorama with
+        the ring-wrapped contour and its label visibility;
+        `Application(geo_shard=2)` must raise RuntimeError on one card.
      Small scenes rendered on the card and on the CPU (plain versions) must
      agree, for the fast preset, the fallback's spec, the fast frame
      (level, 1.1 rad down and across azimuth ±pi) and the exact frame at
@@ -1272,17 +1288,24 @@ STREAM_LAT, STREAM_LON = 44, 11  # the 3 x 3 working set at 44-46N, 11-13E
 
 def mosaic_tables(m):
     """name -> device tensor (int32 words) of every table and scalar of a
-    mosaic, for a bit-for-bit comparison."""
+    mosaic, each band of a row-sharded table under its own name, for a
+    bit-for-bit comparison."""
     import torch
 
     out = {}
+
+    def put(key, t):
+        if isinstance(t, tuple):
+            out.update({f"{key}/{b}": band for b, band in enumerate(t)})
+        elif t is not None:
+            out[key] = t
+
     for name in ("heights_flat", "attr_packed_flat", "cell_heights_flat", "hmax", "bound_center",
                  "bound_radius"):
-        out[name] = getattr(m, name)
+        put(name, getattr(m, name))
     for name in ("mip_heights_flat", "mip_attr_flat", "mip_hmax_flat", "mip_hmax_raw_flat", "win_attr_2d"):
         for lv, t in enumerate(getattr(m, name)):
-            if t is not None:
-                out[f"{name}[{lv}]"] = t
+            put(f"{name}[{lv}]", t)
     return {k: v.contiguous().view(torch.int32) for k, v in out.items()}
 
 
@@ -2397,6 +2420,387 @@ def host_build_path():
     return counts
 
 
+# ---- phase 4k: multi-device rendering -----------------------------------------
+
+GEO_BANDS = 4  # the 100-tile scene's row bands, all on the one card
+CARD = "cuda:0"  # every band and shard of phase 4k
+
+
+def tensor_bytes(x):
+    """Bytes of a tensor, or of every tensor in nested tuples."""
+    if x is None:
+        return 0
+    if isinstance(x, tuple):
+        return sum(tensor_bytes(t) for t in x)
+    return x.numel() * x.element_size()
+
+
+def resident_bytes(m):
+    """(bytes held by each band, bytes replicated on the lead device) of a
+    row-sharded mosaic."""
+    from topo_renderer_tpu_torch.models.scene import ARRAY_FIELDS
+
+    bands, replicated = [0] * len(m.heights_flat), 0
+    for name in ARRAY_FIELDS:
+        leaf = getattr(m, name)
+        for t in (leaf if name.startswith(("mip", "win")) else (leaf,)):
+            if isinstance(t, tuple):
+                for b, band in enumerate(t):
+                    bands[b] += tensor_bytes(band)
+            else:
+                replicated += tensor_bytes(t)
+    return bands, replicated
+
+
+def equal_results(what, a, b, keys=("color", "color_linear", "depth", "distance", "hit")):
+    """Two RenderResults equal bit for bit (tensors as int32 words)."""
+    import torch
+
+    for key in keys:
+        x, y = getattr(a, key), getattr(b, key)
+        x, y = (v if isinstance(v, torch.Tensor) else torch.from_numpy(np.array(v)) for v in (x, y))
+        if x.shape != y.shape or not torch.equal(x.contiguous().view(torch.uint8), y.contiguous().view(torch.uint8)):
+            raise AssertionError(f"{what}: {key} differs from the replicated engine's")
+    if a.visible_labels != b.visible_labels:
+        raise AssertionError(f"{what}: labels differ from the replicated engine's")
+
+
+def timed_calls(fn, calls):
+    """Per-call host-clock ms of ``calls`` calls, each synchronised."""
+    import torch
+
+    fn()
+    torch.cuda.synchronize()
+    out = []
+    for _ in range(calls):
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        out.append(1e3 * (time.perf_counter() - t0))
+    return out
+
+
+def counted(fn):
+    """Launch counts of one call of ``fn`` and its result."""
+    import torch
+
+    torch.cuda.synchronize()
+    reset_counts()
+    res = fn()
+    torch.cuda.synchronize()
+    return read_counts(), res
+
+
+def geo_scene_paths(engine, cam, centre, batch=256):
+    """Phase 4k, the geo mesh: `RenderEngine(geo_mesh=...)` with the 100
+    tiles and their peaks, its mosaic row-sharded over GEO_BANDS bands all
+    on cuda:0. Its config 6 fast frame, config 1 exact frame at both
+    budgets, config 4 panorama and config 5 batch must equal the
+    replicated engine's bit for bit. Returns the launch counts by path."""
+    import torch
+
+    from topo_renderer_tpu_torch.ops.panorama import PanoramaSpec
+    from topo_renderer_tpu_torch.parallel.mesh import Mesh
+    from topo_renderer_tpu_torch.render.engine import RenderEngine
+
+    mesh = Mesh([CARD] * GEO_BANDS, ("geo",))
+    geo = RenderEngine(geo_mesh=mesh)
+    for loc, tile in engine._tiles.items():
+        geo.add_terrain(loc, tile.heights, tile.transform)
+    for loc, peaks in engine._peaks.items():
+        geo.add_peaks(loc, peaks)
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    t0 = time.perf_counter()
+    m = geo.mosaic
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t0
+    bands, replicated = resident_bytes(m)
+    if len(bands) != GEO_BANDS or m.sharded_rows[:1] != (0,) or not m.cell_sharded:
+        raise AssertionError(f"geo engine: not sharded over {GEO_BANDS} bands ({m.sharded_rows})")
+    log(f"geo mesh (phase 4k): {GEO_BANDS} row bands of the {engine.mosaic.shape[0]}x{engine.mosaic.shape[1]} "
+        f"mosaic on {CARD}, padded to {m.shape}, sharded levels {m.sharded_rows}; build and shard "
+        f"{build_s * 1e3:.0f} ms host clock; resident per band "
+        + ", ".join(f"{b / 1e9:.3f}" for b in bands)
+        + f" GB, replicated {replicated / 1e9:.3f} GB; peak {(torch.cuda.max_memory_allocated() - base) / 1e9:.2f} GB "
+        f"above the phase's start, {(torch.cuda.memory_allocated() - base) / 1e9:.2f} GB after")
+
+    counts = {}
+    fast_kw = dict(n_steps=512, fast=True, with_labels=False, wire="yuv420", host_copy=False)
+    frames = {
+        "geo_fast_frame": (fast_kw, "fast frame (config 6)"),
+        "geo_exact_frame": (dict(EXACT_KW, exact_quality="full", with_labels=False, host_copy=False, u8_host=False),
+                            "exact frame (config 1, full)"),
+        "geo_exact_frame_interactive": (dict(EXACT_KW, exact_quality="interactive", with_labels=False,
+                                             host_copy=False, u8_host=False), "exact frame (config 1, interactive)"),
+    }
+    for name, (kw, what) in frames.items():
+        def frame(e, kw=kw):
+            return e.render(cam, FAST_W, FAST_H, **kw)
+
+        ref_counts, ref = counted(lambda: frame(engine))
+        counts[name], got = counted(lambda: frame(geo))
+        keys = ("color", "color_linear", "depth", "distance", "hit")
+        equal_results(f"geo {what}", got, ref, keys)
+        host_ms = timed_calls(lambda: frame(geo), 5)
+        ref_host_ms = timed_calls(lambda: frame(engine), 5)
+        syncs = host_syncs(lambda: frame(geo))
+        if syncs:
+            raise AssertionError(f"geo {what}: {len(syncs)} host syncs inside a frame at {syncs[:8]}")
+        dev_ms, why = graph_ms(lambda: frame(geo))
+        ref_dev_ms, _ = graph_ms(lambda: frame(engine))
+        log(f"geo {what}: {FAST_W}x{FAST_H}, equal to the replicated engine's frame bit for bit; host clock "
+            f"{ms_stats(host_ms)} (replicated: {ms_stats(ref_host_ms)}); host syncs inside a frame 0; device only "
+            f"(CUDA graph, 20 replays) "
+            f"{f'{dev_ms:.3f} ms' if why is None else 'not measured (' + why + ')'} against "
+            f"{'not measured' if ref_dev_ms is None else f'{ref_dev_ms:.3f} ms'} replicated; launches "
+            f"{counts[name]} (replicated {ref_counts})")
+    expect_counts("geo fast frame", counts["geo_fast_frame"],
+                  {"crossing_search": 1, "window_slice_multi": GEO_BANDS, "window_slice_multi_batched": 0})
+    for name in ("geo_exact_frame", "geo_exact_frame_interactive"):
+        expect_counts(name, counts[name], {"crossing_search": 2, "window_slice_multi": 0,
+                                           "window_slice_multi_batched": 0})
+
+    pano_cam = camera_at(*centre, 300.0)
+    spec = PanoramaSpec.fast(4096, 1024, n_steps=512)
+    ref_counts, ref = counted(lambda: engine.render_panorama(pano_cam, spec, fog="atmosphere"))
+    counts["geo_panorama"], got = counted(lambda: geo.render_panorama(pano_cam, spec, fog="atmosphere"))
+    equal_results("geo panorama (config 4)", got, ref)
+    expect_counts("geo panorama", counts["geo_panorama"],
+                  {"crossing_search": 1, "window_slice_multi": GEO_BANDS, "window_slice_multi_batched": 0})
+    pano_ms = cuda_ms(lambda: geo.render_panorama(pano_cam, spec, fog="atmosphere"), iters=3)
+    ref_ms = cuda_ms(lambda: engine.render_panorama(pano_cam, spec, fog="atmosphere"), iters=3)
+    log(f"geo panorama (config 4): 4096x1024 with labels, equal to the replicated panorama bit for bit "
+        f"({sum(len(v) for v in got.visible_labels.values())} labels); {pano_ms:.2f} ms per frame (CUDA events, "
+        f"3 frames) against {ref_ms:.2f} ms replicated; launches {counts['geo_panorama']} (replicated {ref_counts})")
+
+    bspec = PanoramaSpec.fast(1024, 256, n_steps=512)
+    eyes = batch_eyes(centre, batch)
+    suns = torch.tensor([[0.3, 0.5, 0.8]], device=CARD).expand(batch, 3).contiguous()
+    geo.render_batch(eyes[:8], bspec, suns[:8], fog="atmosphere")  # allocator warm-up
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    out = {}
+    reset_counts()
+    batch_ms = cuda_ms(lambda: out.setdefault("got", geo.render_batch(eyes, bspec, suns, fog="atmosphere")),
+                       iters=1, warmup=0)
+    counts["geo_batch"] = read_counts()
+    peak = torch.cuda.max_memory_allocated() - base
+    expect_counts("geo batch", counts["geo_batch"],
+                  {"crossing_search": batch, "window_slice_multi": 0, "window_slice_multi_batched": GEO_BANDS})
+    ref_ms = cuda_ms(lambda: out.setdefault("want", engine.render_batch(eyes, bspec, suns, fog="atmosphere")),
+                     iters=1, warmup=0)
+    if not torch.equal(out.pop("got").view(torch.int32), out.pop("want").view(torch.int32)):
+        raise AssertionError("geo batch: differs from the replicated engine's batch")
+    log(f"geo batch (config 5): {batch} eyes at 1024x256, equal to the replicated batch bit for bit; "
+        f"{batch_ms / 1e3:.3f} s per call (CUDA events) = {batch / (batch_ms * 1e-3):.1f} panoramas/s against "
+        f"{ref_ms / 1e3:.3f} s = {batch / (ref_ms * 1e-3):.1f} panoramas/s replicated; pass 1 "
+        f"holds every eye's windows: peak {peak / 1e9:.2f} GB above the call's start; launches {counts['geo_batch']}")
+    del geo, m
+    torch.cuda.empty_cache()
+    return counts
+
+
+def geo_streaming_path():
+    """Phase 4k, streaming under a geo mesh: phase 4g's 3 x 3 tiles in a
+    replicated streaming engine and in one with a 2-band geo mesh on
+    cuda:0, the same six slot updates of a one-degree move; every band
+    equals `shard_mosaic` of the replicated engine's updated tables bit for
+    bit, and the fast and exact frames after the update equal the
+    replicated ones. Returns the launch counts by path."""
+    import dataclasses
+
+    import torch
+
+    from topo_renderer_tpu_torch.geo import GeoLocation
+    from topo_renderer_tpu_torch.parallel.mesh import Mesh
+    from topo_renderer_tpu_torch.parallel.sharded_mosaic import shard_mosaic
+    from topo_renderer_tpu_torch.render.engine import RenderEngine
+
+    mesh = Mesh([CARD] * 2, ("geo",))
+    ref, geo = RenderEngine(device=CARD, streaming=True), RenderEngine(streaming=True, geo_mesh=mesh)
+    ref._canvas_multiple_override = 8 * 2 * 4  # the geo engine's canvas
+    for lat in range(STREAM_LAT, STREAM_LAT + 3):
+        for lon in range(STREAM_LON, STREAM_LON + 3):
+            tile = make_tile(lat, lon)
+            for e in (ref, geo):
+                e.add_terrain(*tile)
+    ref.mosaic, geo.mosaic
+    if ref._canvas != geo._canvas or geo.mosaic.shape != ref.mosaic.shape:
+        raise AssertionError(f"geo streaming: canvases differ ({ref._canvas} vs {geo._canvas})")
+    counts = {}
+    for e in (ref, geo):
+        for lat in range(STREAM_LAT, STREAM_LAT + 3):
+            e.unload_terrain(GeoLocation.from_coord(lat, STREAM_LON))
+        for lat in range(STREAM_LAT, STREAM_LAT + 3):
+            e.add_terrain(*make_tile(lat, STREAM_LON + 3))
+        if e._dirty or len(e._pending) != 6:
+            raise AssertionError("geo streaming: the move east was not queued as six slot updates")
+    torch.cuda.synchronize()
+    ms = {}
+    syncs = {}
+    for name, e in (("replicated", ref), ("geo", geo)):
+        reset_counts()
+        t0 = time.perf_counter()
+        syncs[name] = host_syncs(lambda e=e: e.mosaic)
+        ms[name] = 1e3 * (time.perf_counter() - t0)
+    counts["geo_streaming_update"] = read_counts()
+    expect_counts("geo streaming update", counts["geo_streaming_update"],
+                  dict.fromkeys(counts["geo_streaming_update"], 0))
+    got = mosaic_tables(geo.mosaic)
+    want = mosaic_tables(shard_mosaic(ref.mosaic, mesh, keep_cell_table=True))
+    differ = [k for k in want if k not in got or not torch.equal(got[k], want[k])]
+    if got.keys() != want.keys() or differ:
+        raise AssertionError(f"geo streaming: bands differ from the resharded replicated tables: {differ[:8]}")
+    log(f"geo streaming (phase 4k): 3x3 tiles on a {geo._canvas[2]}x{geo._canvas[3]} canvas in 2 bands on "
+        f"{CARD}; one degree east = 6 slot updates in {ms['geo']:.1f} ms host clock ({ms['geo'] / 6:.1f} ms per "
+        f"update; host syncs in the pass {len(syncs['geo'])}) against {ms['replicated']:.1f} ms replicated "
+        f"({len(syncs['replicated'])} host syncs); {len(want)} band and replicated tables equal `shard_mosaic` of "
+        f"the replicated engine's updated tables bit for bit")
+
+    cam = camera_at(STREAM_LAT + 1.4, STREAM_LON + 2.3, 300.0)
+    cam = dataclasses.replace(cam, yaw=yaw_toward(cam, 1.2), pitch=0.05)
+    for name, kw, want_counts in (
+        ("geo_streaming_fast_frame", dict(n_steps=512, fast=True), {"crossing_search": 1, "window_slice_multi": 2}),
+        ("geo_streaming_exact_frame", dict(EXACT_KW, exact_quality="full"),
+         {"crossing_search": 2, "window_slice_multi": 0}),
+    ):
+        def frame(e, kw=kw):
+            return e.render(cam, FAST_W, FAST_H, with_labels=False, host_copy=False, u8_host=False, **kw)
+
+        frame(geo)
+        counts[name], res = counted(lambda: frame(geo))
+        expect_counts(name, counts[name], dict(want_counts, window_slice_multi_batched=0))
+        equal_results(name, res, frame(ref), ("color_linear", "depth", "distance", "hit"))
+        s = host_syncs(lambda: frame(geo))
+        if s:
+            raise AssertionError(f"{name}: {len(s)} host syncs inside a frame at {s[:8]}")
+        log(f"{name}: {FAST_W}x{FAST_H} after the updates, equal to the replicated engine's frame bit for bit; "
+            f"hit {float(res.hit.float().mean()):.3f}; host syncs inside a frame 0; launches {counts[name]}")
+    del ref, geo, res
+    torch.cuda.empty_cache()
+    return counts
+
+
+def dp_az_path(engine, centre, batch=8):
+    """Phase 4k, dp x az = 2 x 2 on cuda:0: `render_batch_sharded` of
+    ``batch`` eyes at 1024x256, 512 steps, with the scene's peaks. Every
+    column equals the single-device raw panorama times (1 - the contour of
+    the ring-wrapped depth) within the CPU test's tolerance
+    (`tests/test_torch_parallel.py`), and ``visible`` equals the label
+    visibility of the single-device depth. Returns the launch counts."""
+    import torch
+
+    from topo_renderer_tpu_torch.ops.labels import peak_visibility_panorama
+    from topo_renderer_tpu_torch.ops.panorama import PanoramaSpec, render_panorama
+    from topo_renderer_tpu_torch.ops.postprocess import _contour_mix
+    from topo_renderer_tpu_torch.parallel.mesh import make_mesh
+
+    mesh = make_mesh(4, dp=2, az=2, devices=[CARD] * 4)
+    spec = PanoramaSpec.fast(1024, 256, n_steps=512)
+    eyes = batch_eyes(centre, batch)
+    suns = torch.tensor([[0.3, 0.5, 0.8]], device=CARD).expand(batch, 3).contiguous()
+    engine.render_batch_sharded(eyes[:4], spec, suns[:4], mesh)  # allocator warm-up
+    counts, (color, depth, visible) = counted(lambda: engine.render_batch_sharded(eyes, spec, suns, mesh))
+    expect_counts("dp x az batch", counts, {"crossing_search": 2 * batch, "window_slice_multi": 2 * batch,
+                                            "window_slice_multi_batched": 0})
+    _, pos, valid = engine._padded_peaks()
+    share_c = share_d = 1.0
+    worst_c = worst_d = 0.0
+    n_visible = 0
+    for b in range(batch):
+        raw = render_panorama(engine.mosaic, eyes[b], spec, suns[b], apply_postprocess=False)
+        d = raw["depth"]
+        want_c = raw["color"] * (1.0 - _contour_mix(torch.cat([d[:, -1:], d, d[:, :1]], dim=1))[:, 1:-1, None])
+        dd, dc = (depth[b] - d).abs(), (color[b] - want_c).abs().amax(-1)
+        share_d, share_c = min(share_d, float((dd <= 1e-6).float().mean())), min(share_c, float((dc <= 1e-4).float().mean()))
+        worst_d, worst_c = max(worst_d, float(dd.max())), max(worst_c, float(dc.max()))
+        want_v = peak_visibility_panorama(pos, valid, eyes[b], spec, d)["visible"]
+        if not torch.equal(visible[b], want_v):
+            raise AssertionError(f"dp x az eye {b}: visible differs from the single-device label visibility")
+        n_visible += int(visible[b].sum())
+    if share_d < 0.999 or share_c < 0.999:
+        raise AssertionError(f"dp x az: depth within 1e-6 on {share_d:.5f}, colours within 1e-4 on {share_c:.5f} "
+                             f"of an eye's pixels (CPU test: >= 0.999 each)")
+    call_ms = cuda_ms(lambda: engine.render_batch_sharded(eyes, spec, suns, mesh), iters=1, warmup=0)
+    log(f"dp x az (phase 4k): 2 x 2 on {CARD}, {batch} eyes at 1024x256, 512 steps: {call_ms:.1f} ms per call "
+        f"(CUDA events); against the single-device panorama with the ring-wrapped contour: depth within 1e-6 on "
+        f">= {100 * share_d:.3f}% and colours within 1e-4 on >= {100 * share_c:.3f}% of each eye's pixels (max "
+        f"{worst_d:.2e} and {worst_c:.2e}); visible equal to the label visibility of the single-device depth "
+        f"({n_visible} visible in all); launches {counts}")
+    return counts
+
+
+def geo_application_check():
+    """Phase 4k: `Application` with ``geo_shard=2``. With fewer than two
+    cards it must raise RuntimeError naming the device count before any
+    worker starts; with two or more it streams phase 4h's tiles from a
+    local backend and renders 3 steps."""
+    import shutil
+    import tempfile
+    from pathlib import Path
+
+    import torch
+
+    from topo_renderer_tpu_torch.app.application import Application
+    from topo_renderer_tpu_torch.backend.server import BackendServer
+    from topo_renderer_tpu_torch.config import Settings
+    from topo_renderer_tpu_torch.geo import GeoCoord
+
+    count = torch.cuda.device_count()
+    if count < 2:
+        try:
+            Application(Settings(backend_url="http://127.0.0.1:9", geo_shard=2))
+        except RuntimeError as exc:
+            if f"only {count} devices" not in str(exc):
+                raise
+            log(f"geo application: geo_shard=2 with {count} card raises RuntimeError: {exc}")
+            return
+        raise AssertionError("geo application: geo_shard=2 with one card did not raise")
+    root = Path(tempfile.mkdtemp(prefix="topo_geo_backend_"))
+    server = app = None
+    try:
+        write_backend_data(root, STREAM_LAT, STREAM_LON)
+        server = BackendServer(Settings(address="127.0.0.1", port=0, data_dir=str(root)))
+        server.start()
+        app = Application(Settings(backend_url=server.url, geo_shard=2))
+        app.viewport = (FAST_W, FAST_H)
+        app.start(GeoCoord(STREAM_LAT + 1.5, STREAM_LON + 1.5))
+        app.wait_for_terrain(timeout=APP_TIMEOUT_S)
+        ms = []
+        for _ in range(3):
+            t0 = time.perf_counter()
+            res = app.step(n_steps=512, fast=True)
+            torch.cuda.synchronize()
+            ms.append(1e3 * (time.perf_counter() - t0))
+            if res is None or not res.hit.any():
+                raise AssertionError("geo application: a step rendered no terrain")
+        log(f"geo application: geo_shard=2 over {count} cards, {len(app.engine.loaded_locations)} tiles in, "
+            f"3 fast steps at {FAST_W}x{FAST_H}: " + ", ".join(f"{t:.1f}" for t in ms) + " ms")
+    finally:
+        if app is not None:
+            app.shutdown()
+        if server is not None:
+            server.stop()
+        shutil.rmtree(root, ignore_errors=True)
+
+
+def multi_device_path(engine, cam, centre):
+    """Phase 4k: multi-device rendering on one card. Returns the launch
+    counts by path name."""
+    import torch
+
+    t0 = time.perf_counter()
+    counts = geo_scene_paths(engine, cam, centre)
+    counts["dp_az_batch"] = dp_az_path(engine, centre)
+    counts.update(geo_streaming_path())
+    geo_application_check()
+    log(f"multi-device (phase 4k): {time.perf_counter() - t0:.1f} s; every band and shard ran on {CARD} "
+        f"({torch.cuda.device_count()} card(s) present), so transfers between cards and the capacity gain are not "
+        f"measured")
+    return counts
+
+
 def small_scene_agreement():
     """One small scene on the card and on the CPU (plain versions): the
     same frame up to float rounding. Dither seeds hash world positions, so
@@ -2542,6 +2946,7 @@ def main(argv) -> int:
     exact_counts, exact_ms, exact_dev_ms, exact_profile = exact_frame_path(engine, cam)
     per_call["exact_frame"], per_call["exact_frame_interactive"] = exact_counts["full"], exact_counts["interactive"]
     per_call.update(unguarded_exact_frames(engine, cam))
+    per_call.update(multi_device_path(engine, cam, centre))
     del engine
     torch.cuda.empty_cache()
     per_call.update(streaming_path())

@@ -194,11 +194,16 @@ def test_cli_equals_engine(backend, tmp_path, monkeypatch, caplog, command):
 
 
 def test_geo_shard_refused(backend, monkeypatch):
+    """More geo shards than CUDA devices raise RuntimeError naming the
+    count, before any worker exists (JAX: `app/application.py:54-67`); on
+    the CPU the shards name the one device (`tests/test_torch_parallel.py`)."""
     srv, _ = backend
     made = []
     monkeypatch.setattr(application, "BackgroundRunner", lambda *a, **k: made.append(a))
-    with pytest.raises(NotImplementedError, match="slice 7"):
-        Application(Settings(backend_url=srv.url, geo_shard=2), device="cpu")
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
+    monkeypatch.setattr(torch.cuda, "device_count", lambda: 1)
+    with pytest.raises(RuntimeError, match="TOPO_GEO_SHARD=2 but only 1 devices"):
+        Application(Settings(backend_url=srv.url, geo_shard=2))
     assert made == []
 
 

@@ -51,6 +51,10 @@ def test_no_forbidden_module_after_import():
         "from topo_renderer_tpu_torch.frontends.desktop import DesktopFrontend\n"
         "from topo_renderer_tpu_torch.utils.profiling import FrameTimer, summarize_trace, trace\n"
         "from topo_renderer_tpu_torch.models.scene import Scene, build_height_mips, build_max_mips\n"
+        "from topo_renderer_tpu_torch.parallel.mesh import Mesh, make_mesh, gather_rows\n"
+        "from topo_renderer_tpu_torch.parallel.sharded import render_batch_sharded, jit_sharded_step\n"
+        "from topo_renderer_tpu_torch.parallel.sharded_mosaic import shard_mosaic, render_batch_scan_sharded\n"
+        "from topo_renderer_tpu_torch.parallel.sharded_update import apply_slot_update_sharded\n"
         "import numpy as np\n"
         "blob = write_geotiff(np.ones((3, 4), np.float32), (1.0, 1.0, 0.0), (0.0,) * 6)\n"
         "assert read_geotiff(blob)[0].shape == (3, 4)\n"
@@ -189,3 +193,33 @@ def test_host_values_stay_on_the_host_device(value):
         assert got.dtype == torch.float32 and got.device.type == "cpu"
         assert torch.equal(got, want)
     assert to_device(want, None) is want
+
+
+def test_multi_device_paths_are_not_refused(monkeypatch):
+    """The multi-device slice is ported: a geo mesh, ``geo_shard`` and a
+    row-sharded cell table no longer raise NotImplementedError, and no
+    module of the port raises it."""
+    from topo_renderer_tpu_torch.app import application
+    from topo_renderer_tpu_torch.config import Settings
+    from topo_renderer_tpu_torch.ops.surface import cell_rows, sample_attributes_cell
+    from topo_renderer_tpu_torch.parallel.mesh import Mesh
+    from topo_renderer_tpu_torch.parallel.sharded_mosaic import shard_mosaic
+
+    mesh = Mesh(["cpu"] * 2, ("geo",))
+    engine, cam = _cpu_engine()
+    sharded = RenderEngine(device="cpu", geo_mesh=mesh)
+    for loc, tile in engine._tiles.items():
+        sharded.add_terrain(loc, tile.heights, tile.transform)
+    assert sharded.mosaic.cell_sharded and sharded.mosaic.sharded_rows == (0,)
+    m = shard_mosaic(engine.mosaic, mesh, keep_cell_table=True)
+    idx = torch.arange(0, 64 * 64, 97)
+    assert torch.equal(cell_rows(m, idx), cell_rows(engine.mosaic, idx))
+    gx, gy = torch.tensor([3.5, 40.25]), torch.tensor([7.75, 60.5])
+    assert all(torch.equal(a, b) for a, b in zip(sample_attributes_cell(m, gx, gy),
+                                                 sample_attributes_cell(engine.mosaic, gx, gy)))
+    assert sharded.render(cam, 32, 24, n_steps=64, fast=True, host_copy=False).hit.any()
+    monkeypatch.setattr(application, "BackgroundRunner", lambda *a, **k: type("R", (), {"spawn": lambda s: None})())
+    app = application.Application(Settings(backend_url="http://127.0.0.1:9", geo_shard=2), device="cpu")
+    assert app.engine._geo_mesh.shape == {"geo": 2}
+    for path in PKG.rglob("*.py"):
+        assert "NotImplementedError" not in path.read_text(), path

@@ -405,7 +405,9 @@ def test_more_tiles_than_slots_raises():
 
 
 def test_geo_mesh_still_raises():
-    with pytest.raises(NotImplementedError, match="slice 7"):
+    """A geo mesh that is not a ("geo",) `parallel.mesh.Mesh` is refused
+    (a real one streams: `tests/test_torch_parallel.py`)."""
+    with pytest.raises(TypeError, match="'geo' axis"):
         RenderEngine(device="cpu", streaming=True, geo_mesh=object())
     eng = streaming_engine()
     assert eng.loaded_locations == set()

@@ -25,6 +25,9 @@ import queue
 import time
 from typing import Callable
 
+import torch
+
+from topo_renderer_tpu_torch import resolve_device
 from topo_renderer_tpu_torch.app.state import ApplicationData
 from topo_renderer_tpu_torch.config import Settings
 from topo_renderer_tpu_torch.control.camera_controller import CameraController
@@ -32,6 +35,7 @@ from topo_renderer_tpu_torch.control.events import ChangeLocation, TerminateWith
 from topo_renderer_tpu_torch.control.ui_controller import UiController
 from topo_renderer_tpu_torch.data.background import BackgroundRunner, DataRequested
 from topo_renderer_tpu_torch.geo import GeoCoord
+from topo_renderer_tpu_torch.parallel.mesh import Mesh
 from topo_renderer_tpu_torch.render.engine import RenderEngine
 
 DEFAULT_LOCATION = GeoCoord(49.35135, 20.21139)  # `app.rs:197`
@@ -58,14 +62,24 @@ class Application:
         # instead of rebuilding the mosaic — the reference's per-tile
         # `add_terrain`/`unload_terrain` behavior
         # (`terrain_renderer.rs:173-350,361-363`).
-        # TOPO_GEO_SHARD=<n> (row-sharded tables across n devices) belongs
-        # to the port's multi-device slice.
+        # TOPO_GEO_SHARD=<n> row-shards the big terrain tables across the
+        # first n devices of the engine's device type (scene capacity scales
+        # with devices; every render path reads them through the sharded
+        # programs, and streaming updates land on the bands). On the CPU the
+        # n devices are one, named n times (the tests' virtual devices).
+        geo_mesh = None
         n_shard = int(getattr(self.settings, "geo_shard", 0) or 0)
         if n_shard > 1:
-            raise NotImplementedError(
-                f"TOPO_GEO_SHARD={n_shard}: geo-sharded tables: ROADMAP.md slice 7"
-            )
-        self.engine = RenderEngine(device=device, streaming=True)
+            dev = resolve_device(device)
+            if dev.type == "cpu":
+                devices = [dev] * n_shard
+            else:
+                count = torch.cuda.device_count()
+                if count < n_shard:
+                    raise RuntimeError(f"TOPO_GEO_SHARD={n_shard} but only {count} devices")
+                devices = [torch.device(dev.type, i) for i in range(n_shard)]
+            geo_mesh = Mesh(devices, ("geo",))
+        self.engine = RenderEngine(device=device, streaming=True, geo_mesh=geo_mesh)
         self.camera_controller = CameraController(camera_speed)
         self.ui_controller = UiController(self._request_tile)
         self._events: "queue.Queue" = queue.Queue()

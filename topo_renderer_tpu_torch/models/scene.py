@@ -109,13 +109,24 @@ class TerrainMosaic:
     # normal bits); None below the build's window_table_min.
     win_attr_2d: tuple = ()
     mip_hmax_raw_flat: tuple = ()  # undilated max pyramid (level 1..), streaming builds only
-    sharded_rows: tuple = ()  # multi-device builds only (not ported yet)
-    cell_sharded: bool = False  # multi-device builds only (not ported yet)
+    # Row-sharded mosaics (`parallel/sharded_mosaic.py::shard_mosaic`): the
+    # levels (0 = base) whose tables are tuples of per-band tensors, one per
+    # device of a ("geo",) mesh; ``cell_sharded`` where the cell table is too.
+    sharded_rows: tuple = ()
+    cell_sharded: bool = False
     texel_m: float = 92.6  # base texel size hint, 3 significant digits
 
     @property
     def device(self) -> torch.device:
-        return self.heights_flat.device
+        """Where the replicated tables live and frames render (a sharded
+        mosaic's lead device)."""
+        return self.model_point.device
+
+    @property
+    def cell_width(self) -> int:
+        """Columns of a cell-table row (8, or 8 in the [1, 8] placeholder)."""
+        cell = self.cell_heights_flat
+        return (cell[0] if isinstance(cell, tuple) else cell).shape[-1]
 
     @property
     def heights(self):

@@ -53,6 +53,7 @@ from topo_renderer_tpu_torch.ops.surface import (
     sample_height_level,
 )
 from topo_renderer_tpu_torch.ops.window_slice import window_slice_multi, window_slice_multi_batched
+from topo_renderer_tpu_torch.parallel.mesh import gather_rows
 
 NEG_RATIO = -1.0e30  # profile samples outside the mosaic
 # Viewpoints per K3 launch in `render_batch_scan`: at config 5 (four
@@ -291,7 +292,8 @@ def extract_clipmap_windows(mosaic, eye, spec: PanoramaSpec):
 
     Levels with a 2-D window table go through one launch of kernel K2 when
     the spec's profile carries attributes; other windowed levels are cut
-    from the flat tables (`_slice_level_flat`).
+    from the flat tables (`_slice_level_flat`). A row-sharded mosaic takes
+    `parallel/sharded_mosaic.py::extract_clipmap_windows_sharded`.
 
     Returns a tuple over levels of ``(tbl_h, tbl_a, tbl_q, ox, oy)``:
     ``tbl_a f32[wsy*wsx, 2]`` (height, normal-bits) rows, ``tbl_q
@@ -299,18 +301,25 @@ def extract_clipmap_windows(mosaic, eye, spec: PanoramaSpec):
     f32[wsy*wsx]`` heights for specs without profile attributes, and the
     int32 origin. Entries are None where the level is gathered in full.
     """
-    dev = mosaic.device
-    eye = f32(eye, dev)
+    if mosaic.sharded_rows:
+        from topo_renderer_tpu_torch.parallel.sharded_mosaic import extract_clipmap_windows_sharded
+
+        return extract_clipmap_windows_sharded(mosaic, eye, spec)
+    eye = f32(eye, mosaic.device)
+    return _extract_windows(mosaic, *_eye_raster(mosaic, eye), spec)
+
+
+def _extract_windows(mosaic, gx_e, gy_e, spec: PanoramaSpec, skip=frozenset()):
+    """`extract_clipmap_windows` from the eye's raster coordinates, leaving
+    the levels in ``skip`` (the sharded ones) as if gathered in full."""
     n_levels = len(mosaic.mip_shapes)
     use_attr = bool(spec.attrs_from_profile and spec.lod and n_levels)
-    gx_e, gy_e = _eye_raster(mosaic, eye)
-
     quad_levels = _bilinear_levels(spec, n_levels, _texel_m(spec, mosaic)) if use_attr else set()
     plan = _clipmap_window_plan(spec, mosaic)
     levels, tables, origins = [], [], []
     out = []
     for level, use_window, wsy, wsx, (h_t, w_t) in plan:
-        if not use_window:
+        if not use_window or level in skip:
             out.append((None, None, None, None, None))
             continue
         sx, sy = _window_origin(gx_e, gy_e, level, wsy, wsx, h_t, w_t)
@@ -361,15 +370,15 @@ class _WindowBatch:
         return tuple(out)
 
 
-def _window_batch(mosaic, eyes, spec: PanoramaSpec):
+def _window_batch(mosaic, eyes, spec: PanoramaSpec, skip=frozenset()):
     """One K3 launch for the windows of ``eyes f32[B, 3]``, or None where
     the batched copy does not apply: a spec without profile attributes, no
     windowed level, or a windowed level without its 2-D table
-    (`panorama.py:714-736`)."""
+    (`panorama.py:714-736`). Levels in ``skip`` are left out."""
     n_levels = len(mosaic.mip_shapes)
     use_attr = bool(spec.attrs_from_profile and spec.lod and n_levels)
     plan = _clipmap_window_plan(spec, mosaic)
-    windowed = [p for p in plan if p[1]]
+    windowed = [p for p in plan if p[1] and p[0] not in skip]
     have_2d = all(
         lv < len(mosaic.win_attr_2d) and mosaic.win_attr_2d[lv] is not None for lv, *_ in windowed
     )
@@ -471,6 +480,7 @@ def _build_lod_profile(mosaic, spec: PanoramaSpec, windows, a0, up, h_prof_b, si
             tbl_h, tbl_a, tbl_q, ox, oy = windows[level]
             tw, th_ = wsx, wsy
         else:
+            # The whole level; a row-sharded one is read band by band.
             tbl_h = mosaic.heights_flat if level == 0 else mosaic.mip_heights_flat[level - 1]
             tbl_a = mosaic.attr_packed_flat if level == 0 else mosaic.mip_attr_flat[level - 1]
             tbl_q = None
@@ -499,7 +509,7 @@ def _build_lod_profile(mosaic, spec: PanoramaSpec, windows, a0, up, h_prof_b, si
                 q = tbl_q[i00]
                 r00, r01, r10, r11 = q[..., 0:2], q[..., 2:4], q[..., 4:6], q[..., 6:8]
             else:
-                r00, r01, r10, r11 = (tbl_a[i00 + d] for d in (0, 1, tw, tw + 1))
+                r00, r01, r10, r11 = (gather_rows(tbl_a, i00 + d) for d in (0, 1, tw, tw + 1))
 
             def blend(v00, v01, v10, v11):
                 return (v00 * (1 - fxs) + v01 * fxs) * (1 - fys) + (v10 * (1 - fxs) + v11 * fxs) * fys
@@ -518,7 +528,7 @@ def _build_lod_profile(mosaic, spec: PanoramaSpec, windows, a0, up, h_prof_b, si
             idx = (torch.clamp(iy, 0, th_ - 1) * tw + torch.clamp(ix, 0, tw - 1)).long()
             if use_attr_prof:
                 # One row gather serves the height and the packed normal.
-                rows = tbl_a[idx]
+                rows = gather_rows(tbl_a, idx)
                 h = rows[..., 0]
                 bits = rows[..., 1].view(torch.int32)
                 comps_part = tuple(
@@ -529,7 +539,7 @@ def _build_lod_profile(mosaic, spec: PanoramaSpec, windows, a0, up, h_prof_b, si
                     comps_part = tuple(torch.repeat_interleave(c, stride, dim=1) for c in comps_part)
                 parts_attr.append(comps_part)
             else:
-                h = tbl_h[idx]
+                h = gather_rows(tbl_h, idx)
         ok = ok & (h > 0.5 * INVALID_HEIGHT)
         y = h * cs - a0 - 2.0 * R0 * sh2
         x = (R0 + h) * sn
@@ -948,8 +958,14 @@ def render_batch_scan(mosaic, eyes, suns, spec: PanoramaSpec, view_mode=0, fog: 
     clipmap windows of up to ``EYES_PER_LAUNCH`` (256) eyes (one launch per
     such chunk), and each eye then renders from its own windows, keeping
     per-eye gather locality. Quad rows are built per eye. Where the batched
-    copy does not apply (`_window_batch`), each eye extracts its own.
+    copy does not apply (`_window_batch`), each eye extracts its own. A
+    row-sharded mosaic takes
+    `parallel/sharded_mosaic.py::render_batch_scan_sharded`.
     """
+    if mosaic.sharded_rows:
+        from topo_renderer_tpu_torch.parallel.sharded_mosaic import render_batch_scan_sharded
+
+        return render_batch_scan_sharded(mosaic, eyes, suns, spec, view_mode=view_mode, fog=fog)
     dev = mosaic.device
     eyes = f32(eyes, dev)
     suns = f32(suns, dev)

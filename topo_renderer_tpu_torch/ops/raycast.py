@@ -910,7 +910,7 @@ def render_perspective(
     # where the cell rows carry the normals, four attribute rows otherwise.
     r = torch.sqrt(pos_x * pos_x + pos_y * pos_y + pos_z * pos_z)
     gx, gy = raster_from_ecef(mosaic, pos_x, pos_y, pos_z, r)
-    if mosaic.has_cell_table and mosaic.cell_heights_flat.shape[-1] == 8:
+    if mosaic.has_cell_table and mosaic.cell_width == 8:
         _, n_x, n_y, n_z, _ = sample_attributes_cell(mosaic, gx, gy)
     else:
         _, n_x, n_y, n_z, _ = sample_attributes_soa(mosaic, gx, gy)
@@ -942,6 +942,7 @@ def fast_view_spec(
     fov_hint: float = DEFAULT_FOV_HINT,
     supersample: float = 1.25,
     n_steps: int = 384,
+    clipmap_threshold: int | None = None,
 ):
     """The panorama spec that `render_perspective_fast` renders, with the
     window's half height and azimuth span: ``(spec, half_win, az_span)``.
@@ -949,7 +950,9 @@ def fast_view_spec(
     Host arithmetic in Python floats, as the JAX package derives it, so the
     window's static shapes are the same: the window covers the frustum's
     diagonal half-angle plus a margin, at ``supersample`` x the pixel
-    density; widths round up to 256, heights to 8.
+    density; widths round up to 256, heights to 8. ``clipmap_threshold``
+    overrides `PanoramaSpec.fast`'s (the sharded fast frame windows every
+    sharded level, `parallel/sharded_mosaic.py`).
     """
     half_diag = min(
         math.atan(math.tan(0.5 * float(fov_hint)) * math.sqrt(1.0 + (width / height) ** 2)),
@@ -960,10 +963,11 @@ def fast_view_spec(
     px_per_rad = supersample * height / float(fov_hint)
     wp = max(256, min(int(math.ceil(az_span * px_per_rad / 256.0)) * 256, 8192))
     hp = max(64, min(int(math.ceil(2.0 * half_win * px_per_rad / 8.0)) * 8, 4096))
+    kw = {} if clipmap_threshold is None else {"clipmap_threshold": clipmap_threshold}
     spec = PanoramaSpec.fast(
         width=wp, height=hp, n_steps=n_steps,
         azimuth_start=-0.5 * az_span, azimuth_span=az_span,
-        elev_min=-half_win, elev_max=half_win,
+        elev_min=-half_win, elev_max=half_win, **kw,
     )
     return spec, half_win, az_span
 
@@ -982,6 +986,8 @@ def render_perspective_fast(
     n_steps: int = 384,
     pixelize_n=None,
     fov_hint: float = DEFAULT_FOV_HINT,
+    windows=None,
+    clipmap_threshold: int | None = None,
 ):
     """Interactive perspective frame on the mosaic's device.
 
@@ -993,6 +999,11 @@ def render_perspective_fast(
     8-word row (colour as a 10/10/10 code, distance) per pixel. The rows are
     int32 words: a packed colour whose blue code is below 8 is a denormal
     as a float.
+
+    ``windows``: the clipmap windows of `fast_view_spec`'s spec (with
+    ``clipmap_threshold``), extracted beforehand, as the sharded fast frame
+    does (`parallel/sharded_mosaic.py::render_perspective_fast_sharded`);
+    extracted here when None.
 
     Returns ``{"color" f32[H, W, 3], "depth" (0..1 reference convention),
     "distance", "hit"}``.
@@ -1011,7 +1022,7 @@ def render_perspective_fast(
 
     spec, half_win, az_span = fast_view_spec(
         width=width, height=height, fov_hint=fov_hint, supersample=supersample,
-        n_steps=n_steps,
+        n_steps=n_steps, clipmap_threshold=clipmap_threshold,
     )
     wp, hp = spec.width, spec.height
 
@@ -1021,7 +1032,7 @@ def render_perspective_fast(
     pano = render_panorama(
         mosaic, eye, spec, camera.sun_angle.to_vec3(), view_mode=int(camera.view_mode),
         quantize_rt=False, apply_postprocess=False,
-        azimuth_offset=az_c, elev_offset=el_c,
+        azimuth_offset=az_c, elev_offset=el_c, windows=windows,
     )
 
     enc = torch.round(torch.clamp(pano["color"], 0.0, 1.0) * 1023.0).to(torch.int32)

@@ -1,8 +1,7 @@
 """Raster <-> geographic mappings and heightfield surface sampling.
 
-Port of `topo_renderer_tpu/ops/surface.py` (its row-sharded `cell_rows`
-aside): the coordinate mappings, and the samplers of the triangle-exact
-surface the reference rasterizes (`render_buffer.rs:191-219`: each cell split into two
+Port of `topo_renderer_tpu/ops/surface.py`: the coordinate mappings, and
+the samplers of the triangle-exact surface the reference rasterizes (`render_buffer.rs:191-219`: each cell split into two
 triangles along a diagonal that alternates with ``(i + j) % 2``).
 
 Cell-local convention (matching the raster): fx grows east (columns), fy
@@ -13,6 +12,11 @@ grows south (rows); the NW corner is texel (cy, cx).
             lower {SE, NE, SW}
 
 Packed normals are read as int32 words (`models/scene.py`).
+
+Every table read goes through `parallel/mesh.py::gather_rows`, so the
+samplers also read a row-sharded mosaic (`parallel/sharded_mosaic.py`):
+each band gathers the rows it owns and the owner's rows are selected onto
+the mosaic's lead device.
 
 The exact frame's track helpers (`track_coeffs`, `raster_from_coeffs`)
 expand the ray's raster track in its parameter t: every large quantity is a
@@ -28,6 +32,7 @@ import torch
 
 from topo_renderer_tpu_torch.models.scene import POISON_HEIGHT, unpack_normals
 from topo_renderer_tpu_torch.ops.geometry import degrees, f32, radians
+from topo_renderer_tpu_torch.parallel.mesh import gather_rows
 
 INVALID_HEIGHT = POISON_HEIGHT
 
@@ -41,10 +46,11 @@ def index_i32(x, hi: int):
 
 
 def cell_rows(mosaic, idx):
-    """Per-cell corner rows ``cell_heights_flat[idx]`` (unsharded form)."""
-    if mosaic.cell_sharded:
-        raise NotImplementedError("row-sharded cell tables: ROADMAP.md slice 7")
-    return mosaic.cell_heights_flat[idx.long()]
+    """Per-cell corner rows ``cell_heights_flat[idx]``. On a row-sharded
+    cell table (``mosaic.cell_sharded``) each band gathers the rows it owns
+    and the single owner's row is selected onto the lead device, where the
+    JAX package adds every device's masked rows with a `psum`."""
+    return gather_rows(mosaic.cell_heights_flat, idx.long())
 
 
 def raster_from_geo(mosaic, lon_deg, lat_deg):
@@ -240,7 +246,7 @@ def sample_height(mosaic, gx, gy):
         h = tri_interp(rows[..., 0], rows[..., 1], rows[..., 2], rows[..., 3], fx, fy, parity)
     else:
         flat = mosaic.heights_flat
-        h = tri_interp(flat[idx], flat[idx + 1], flat[idx + w], flat[idx + w + 1], fx, fy, parity)
+        h = tri_interp(*(gather_rows(flat, i) for i in (idx, idx + 1, idx + w, idx + w + 1)), fx, fy, parity)
     return torch.where(in_bounds, h, INVALID_HEIGHT)
 
 
@@ -258,7 +264,7 @@ def sample_height_level(mosaic, level: int, gx, gy, nearest: bool = False):
         ix = torch.clamp(torch.round(gx).to(torch.int32), 0, w0 - 1)
         iy = torch.clamp(torch.round(gy).to(torch.int32), 0, h0 - 1)
         in_b = (gx >= 0.0) & (gy >= 0.0) & (gx <= w0 - 1.0) & (gy <= h0 - 1.0)
-        h = mosaic.heights_flat[iy.long() * w0 + ix.long()]
+        h = gather_rows(mosaic.heights_flat, iy.long() * w0 + ix.long())
         return torch.where(in_b, h, INVALID_HEIGHT)
 
     flat = mosaic.mip_heights_flat[level - 1]
@@ -271,14 +277,14 @@ def sample_height_level(mosaic, level: int, gx, gy, nearest: bool = False):
     if nearest:
         ix = torch.clamp(torch.round(gxl).to(torch.int32), 0, w_l - 1)
         iy = torch.clamp(torch.round(gyl).to(torch.int32), 0, h_l - 1)
-        h = flat[iy.long() * w_l + ix.long()]
+        h = gather_rows(flat, iy.long() * w_l + ix.long())
     else:
         x0 = torch.clamp(torch.floor(gxl).to(torch.int32), 0, w_l - 2)
         y0 = torch.clamp(torch.floor(gyl).to(torch.int32), 0, h_l - 2)
         fx = torch.clamp(gxl - x0, 0.0, 1.0)
         fy = torch.clamp(gyl - y0, 0.0, 1.0)
         i = y0.long() * w_l + x0.long()
-        a, b, c, d = flat[i], flat[i + 1], flat[i + w_l], flat[i + w_l + 1]
+        a, b, c, d = (gather_rows(flat, j) for j in (i, i + 1, i + w_l, i + w_l + 1))
         h = (a * (1 - fx) + b * fx) * (1 - fy) + (c * (1 - fx) + d * fx) * fy
     return torch.where(in_b, h, INVALID_HEIGHT)
 
@@ -290,7 +296,7 @@ def sample_attributes_nearest(mosaic, gx, gy):
     ix = torch.clamp(torch.round(gx).to(torch.int32), 0, w0 - 1)
     iy = torch.clamp(torch.round(gy).to(torch.int32), 0, h0 - 1)
     in_b = (gx >= 0.0) & (gy >= 0.0) & (gx <= w0 - 1.0) & (gy <= h0 - 1.0)
-    rows = mosaic.attr_packed_flat[iy.long() * w0 + ix.long()]  # [..., 2]
+    rows = gather_rows(mosaic.attr_packed_flat, iy.long() * w0 + ix.long())  # [..., 2]
     h = rows[..., 0]
     nx, ny, nz = unpack_normals(rows[..., 1])
     ok = in_b & (h > 0.5 * INVALID_HEIGHT)
@@ -303,7 +309,7 @@ def sample_attributes_soa(mosaic, gx, gy):
     rasterizer's triangle weights. Returns ``(h, nx, ny, nz, ok)``."""
     idx, w, fx, fy, parity, in_bounds = _cell_setup(mosaic, gx, gy)
     attr = mosaic.attr_packed_flat
-    corners = [attr[i] for i in (idx, idx + 1, idx + w, idx + w + 1)]  # NW, NE, SW, SE
+    corners = [gather_rows(attr, i) for i in (idx, idx + 1, idx + w, idx + w + 1)]  # NW, NE, SW, SE
     h = tri_interp(*(r[..., 0] for r in corners), fx, fy, parity)
     bits = [r[..., 1].view(torch.int32) for r in corners]
     out = []
@@ -323,9 +329,7 @@ def sample_attributes_cell(mosaic, gx, gy):
     are gathered and read as int32). The interpolation is
     `sample_attributes_soa`'s. Returns ``(h, nx, ny, nz, ok)``."""
     idx, _, fx, fy, parity, in_bounds = _cell_setup(mosaic, gx, gy)
-    if mosaic.cell_sharded:
-        raise NotImplementedError("row-sharded cell tables: ROADMAP.md slice 7")
-    rows = mosaic.cell_heights_flat.view(torch.int32)[idx]
+    rows = cell_rows(mosaic, idx).view(torch.int32)
     heights = rows[..., :4].view(torch.float32)
     h = tri_interp(*heights.unbind(-1), fx, fy, parity)
     bits = rows[..., 4:].unbind(-1)

@@ -21,6 +21,7 @@ from __future__ import annotations
 import ctypes
 import dataclasses
 import math
+from collections import OrderedDict
 
 import torch
 
@@ -53,8 +54,8 @@ def window_slice_multi_batched_plain(tables, origins, *, wsy: int, wsx: int):
 
 
 _lib = None
-_ARGS_CACHE_MAX = 64  # table sets whose launch arguments are kept
-_args_cache: dict = {}
+_ARGS_CACHE_MAX = 64  # table sets whose launch arguments are kept, least recently used out
+_args_cache: OrderedDict = OrderedDict()
 
 
 def _kernel_lib():
@@ -117,12 +118,15 @@ def _launch_args(tables, origins, wsy, wsx, batched):
     """The validated launch arguments of ``tables``, cached under every
     table's (data pointer, shape, strides, dtype, device), the window and
     the batch: a table set that differs in any of them gets its own entry,
-    so no launch reads another set's pointers."""
+    so no launch reads another set's pointers. The cache keeps the most
+    recently used sets: a row-sharded mosaic's band sets (one per band and
+    window shape) come and go without evicting the others."""
     batch = origins.shape[0] if batched else 1
     key = (wsy, wsx, batched, batch,
            *[(t.data_ptr(), t.shape, t.stride(), t.dtype, t.get_device()) for t in tables])
     args = _args_cache.get(key)
     if args is not None:
+        _args_cache.move_to_end(key)
         return args
     _check_inputs(tables, origins, wsy, wsx, batched)
     if not all(t.is_contiguous() for t in tables):
@@ -144,7 +148,7 @@ def _launch_args(tables, origins, wsy, wsx, batched):
         ws=ints(*(t.shape[-1] for t in tables)),
     )
     if len(_args_cache) >= _ARGS_CACHE_MAX:
-        _args_cache.clear()
+        _args_cache.popitem(last=False)
     _args_cache[key] = args
     return args
 

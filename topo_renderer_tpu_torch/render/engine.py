@@ -1,16 +1,20 @@
 """RenderEngine: the top-level rendering API.
 
-Port of `topo_renderer_tpu/render/engine.py` on one device: the loaded tile
-set and per-tile peak lists (`render_engine.rs:34-44`), a mosaic rebuilt on
-the engine's device when tiles change (or, with ``streaming=True``, updated
-one tile slot at a time), ``render_panorama`` with its
-peak-label pass, ``render_batch`` for many viewpoints without labels, and
-``render``, the perspective frame (triangle-exact, or ``fast=True`` for the
-interactive warp), with its label pass and the one-transfer wire
-(`render/transport.py`). The JAX package fuses render, label visibility
-and wire encoding into one jitted program per variant; here they are plain
-calls on the device, and at most one buffer per frame crosses to the host
-on its own: the packed visibility, or the wire vector.
+Port of `topo_renderer_tpu/render/engine.py`: the loaded tile set and
+per-tile peak lists (`render_engine.rs:34-44`), a mosaic rebuilt on the
+engine's device when tiles change (or, with ``streaming=True``, updated one
+tile slot at a time), ``render_panorama`` with its peak-label pass,
+``render_batch`` for many viewpoints without labels, ``render``, the
+perspective frame (triangle-exact, or ``fast=True`` for the interactive
+warp), with its label pass and the one-transfer wire (`render/transport.py`),
+and ``render_batch_sharded`` over a (dp, az) device mesh. With
+``geo_mesh`` the mosaic's large tables are row-sharded over a ``("geo",)``
+mesh and every path reads them through the sharded programs
+(`parallel/sharded_mosaic.py`, `parallel/sharded_update.py`). The JAX
+package fuses render, label visibility and wire encoding into one jitted
+program per variant; here they are plain calls on the device, and at most
+one buffer per frame crosses to the host on its own: the packed
+visibility, or the wire vector.
 
 Peak arrays are padded to power-of-two capacities, as in the JAX package.
 """
@@ -54,6 +58,10 @@ from topo_renderer_tpu_torch.ops.panorama import (
 )
 from topo_renderer_tpu_torch.ops.raycast import render_perspective, render_perspective_fast
 from topo_renderer_tpu_torch.ops.surface import raster_from_geo, sample_height
+from topo_renderer_tpu_torch.parallel.mesh import Mesh, canonical
+from topo_renderer_tpu_torch.parallel.sharded import render_batch_sharded
+from topo_renderer_tpu_torch.parallel.sharded_mosaic import GEO_AXIS, shard_mosaic
+from topo_renderer_tpu_torch.parallel.sharded_update import apply_slot_update_sharded
 from topo_renderer_tpu_torch.render import text as text_mod
 from topo_renderer_tpu_torch.render import transport
 from topo_renderer_tpu_torch.render.overlay import composite_labels
@@ -126,11 +134,24 @@ class RenderEngine:
         outside it, or off its grid, rebuilds on a fresh canvas. The canvas
         holds at most 64 tiles, as the JAX package's does.
 
-        ``geo_mesh`` (multi-device tables) belongs to a later slice of the
-        port and raises NotImplementedError."""
+        ``geo_mesh``: a `parallel/mesh.py::Mesh` with a ``"geo"`` axis. The
+        mosaic's large tables are row-sharded over it (`shard_mosaic`, with
+        the cell table); every render path reads them band by band
+        (`parallel/sharded_mosaic.py`), computing once on the mesh's lead
+        device, and streaming slot updates write the bands in place
+        (`apply_slot_update_sharded`). The streaming canvas's rows are then
+        a multiple of ``8 * n_dev * 4``, so that sharding adds no padding.
+        ``device`` defaults to the mesh's lead device, and must be it."""
         if geo_mesh is not None:
-            raise NotImplementedError("geo-sharded tables: ROADMAP.md slice 7")
+            if not isinstance(geo_mesh, Mesh) or GEO_AXIS not in geo_mesh.axis_names:
+                raise TypeError(f"geo_mesh must be a parallel.mesh.Mesh with a {GEO_AXIS!r} axis")
+            if device is not None and canonical(device) != geo_mesh.lead:
+                raise ValueError(f"device {device} is not the geo mesh's lead device {geo_mesh.lead}")
+            device = geo_mesh.lead
         self.device = resolve_device(device)
+        self._geo_mesh = geo_mesh
+        self._shard_threshold = 2_000_000  # texels; tests lower it
+        self._canvas_multiple_override = None  # canvas rows' multiple; tests align a replicated engine
         self._tiles: dict[GeoLocation, TerrainTile] = {}
         self._peaks: dict[GeoLocation, list[PeakInstance]] = {}
         self._mosaic: TerrainMosaic | None = None
@@ -278,7 +299,8 @@ class RenderEngine:
                 xs = np.minimum((sx + np.arange(sw)) * s, w_m - 2)
                 owners = host.cell_tile[ys[:, None], xs[None, :]]
                 slices.append(to_device(torch.from_numpy(np.where(owners < 0, 0, owners).astype(np.int64)), dev))
-            self._mosaic = apply_slot_update(
+            update = apply_slot_update if self._geo_mesh is None else apply_slot_update_sharded
+            self._mosaic = update(
                 self._mosaic, to_device(torch.from_numpy(blk), dev), oy, ox, tuple(slices),
                 f32(self._rotations.reshape(-1), dev), geo, th=th, tw=tw,
             )
@@ -317,7 +339,12 @@ class RenderEngine:
         lat_nw = lat_max + ps_y * margin_y
         need_h = int(round((lat_nw - lat_min) / ps_y)) + 1 + margin_y
         need_w = int(round((lon_max - lon_nw) / ps_x)) + 1 + margin_x
-        h_m, w_m = streaming_canvas_dim(need_h), streaming_canvas_dim(need_w)
+        # Row-sharded streaming needs shard_mosaic to add no padding: rows a
+        # multiple of 8 * n_dev, down to the top sharded mip level.
+        mult = self._canvas_multiple_override or (
+            8 * self._geo_mesh.shape[GEO_AXIS] * 4 if self._geo_mesh is not None else 1
+        )
+        h_m, w_m = streaming_canvas_dim(need_h, mult), streaming_canvas_dim(need_w)
         self._canvas = (lon_nw, lat_nw, h_m, w_m, ps_x, ps_y)
         self._mosaic = None  # free the old tables before building anew
         self._mosaic = build_mosaic(
@@ -356,6 +383,17 @@ class RenderEngine:
                 order = sorted(self._tiles.keys())
                 self._mosaic = build_mosaic([self._tiles[k] for k in order], device=self.device,
                                             on_device=self._device_mosaic_build)
+            if self._geo_mesh is not None:
+                shape0 = self._mosaic.shape
+                self._mosaic = shard_mosaic(
+                    self._mosaic, self._geo_mesh, size_threshold=self._shard_threshold, keep_cell_table=True,
+                )
+                if self._streaming and self._mosaic.shape != shape0:
+                    # Padding breaks the halving chain slot updates rely on;
+                    # the streaming canvas is sized aligned, so only a plain
+                    # build (mixed tiles, no slot updates) gets here.
+                    self._canvas = None
+                    self._slots = {}
             self._dirty = False
         elif self._pending:
             self._apply_pending()
@@ -517,9 +555,12 @@ class RenderEngine:
             raise ValueError(f"unknown exact_quality {exact_quality!r}")
         fov_hint = self._fov_bucket_rad(camera)
         if fast:
+            # A geo-sharded mosaic's sharded levels are all windowed (JAX's
+            # `_render_sharded`): its windows come band by band.
+            clip = min(self._shard_threshold, 2_000_000) if self._geo_mesh is not None else None
             out = render_perspective_fast(
                 self.mosaic, camera, width=width, height=height, n_steps=min(n_steps, 512),
-                pixelize_n=pixelize_n, fov_hint=fov_hint,
+                pixelize_n=pixelize_n, fov_hint=fov_hint, clipmap_threshold=clip,
             )
         else:
             out = render_perspective(
@@ -609,6 +650,8 @@ class RenderEngine:
 
         windows = None
         if spec.lod and spec.clipmap and mosaic.mip_shapes:
+            # A geo-sharded mosaic's windows come band by band
+            # (`extract_clipmap_windows_sharded`).
             windows = extract_clipmap_windows(mosaic, eye, spec)
 
         visible_labels: dict[GeoLocation, list] = {}
@@ -637,7 +680,8 @@ class RenderEngine:
         on the engine's device.
 
         Clipmap (LOD) specs go through `render_batch_scan`: one launch of
-        kernel K3 extracts every eye's windows, then each eye renders from
+        kernel K3 extracts every eye's windows (a geo-sharded mosaic's: one
+        per band, `render_batch_scan_sharded`), then each eye renders from
         its own. Other specs render eye by eye with the reduction crossing
         (``use_pallas=False``), as the JAX package's vmapped fallback forces
         it (`engine.py:1173-1182`).
@@ -651,3 +695,14 @@ class RenderEngine:
             render_panorama(self.mosaic, e, vspec, s, view_mode=view_mode, fog=fog)["color"]
             for e, s in zip(eyes, suns)
         ])
+
+    def render_batch_sharded(self, eyes, spec: PanoramaSpec, sun_directions, mesh, fog=None, view_mode=0):
+        """Panoramas of many viewpoints over a (dp, az) device mesh, with
+        the label decisions merged across the azimuth shards
+        (`parallel/sharded.py`): ``(color [B, H, W, 3], depth [B, H, W],
+        visible [B, P])`` on the mesh's lead device."""
+        _, pos, valid = self._padded_peaks()
+        return render_batch_sharded(
+            self.mosaic, eyes, sun_directions, spec, mesh, view_mode=view_mode, fog=fog,
+            peak_positions=pos, peak_valid=valid,
+        )
