@@ -17,9 +17,20 @@ Phases (any failure exits non-zero):
      payloads; exact and bound profiles, level and 1.1 rad down), on ties,
      N = 509 (not a multiple of its chunk), crossings and NaNs at chunk
      edges, shuffled rows at the batch shape and an unaligned profile; K2
-     also on two table sets in turn;
+     also on two table sets in turn. Each kernel's device time is read by
+     CUDA events, one pair per launch with the host queued ahead, cold (a
+     256 MB scratch buffer written between launches, outside the pair) and
+     warm, beside an empty kernel's (the card's floor), its bytes bound
+     and, for K2 and K4, the `copy_` calls that compute the same windows
+     from host-int origins (K2: one per level). A cold reading faster than
+     105% of 3.35 TB/s for the bytes counted fails the run. K3 is read at
+     phase 3's random origins and at config 5's own (after the scene's
+     build, before phase 4a), bytes counted by ``batched_bytes``;
   4. drive the engine on 100 COP-90-shaped tiles (10 x 10 tiles of 1201^2
-     texels at 3", a 12001^2 mosaic) and ~256 peaks:
+     texels at 3", a 12001^2 mosaic) and ~256 peaks. First K3 at the
+     origins `_window_batch` gives it for config 5's 256 eyes, on the
+     scene's ``win_attr_2d`` tables, bit for bit against its plain version
+     and timed as in phase 3, then phase 5; then:
      a. three 4096 x 1024 atmospheric LOD panoramas of 512 steps with
         labels; every frame must launch K1 and K2 once, hit terrain and
         sky, and carry labels;
@@ -108,7 +119,9 @@ Phases (any failure exits non-zero):
         replicated bytes, the peak memory); its config 6 fast frame (K1 1,
         K2 4: one per band), config 1 exact frame at both budgets (K1 2),
         config 4 panorama (K1 1, K2 4) and config 5 batch of 256 eyes (K1
-        256, K3 4) must equal the replicated engine's bit for bit, with
+        256, K3 4; each K3 launch also held bit for bit against its plain
+        version at its band's origins) must equal the replicated engine's
+        bit for bit, with
         host-clock and device-only ms and 0 host syncs in the frames;
         streaming under a 2-band geo mesh on phase 4g's tiles (six slot
         updates; the bands equal `shard_mosaic` of a replicated engine's
@@ -122,11 +135,13 @@ Phases (any failure exits non-zero):
      (level, 1.1 rad down and across azimuth ±pi) and the exact frame at
      320 x 180 (guided, unguided and both marches without the own-texel
      leg; the unguided two-level frame's host syncs are printed);
-  5. each kernel's own device time with torch.profiler, after the paths'
-     timings so that no profiler has run before them, and the ``kernels``
-     JSON line. Per-call times (CUDA events) come from phases 3 and 4.
+  5. each kernel's own device time with torch.profiler, cold and warm as
+     in phase 3, beside the event readings, before any path runs (see
+     `device_times`); the ``kernels`` JSON line comes last (``ms``: the
+     cold event reading; ``call_ms``: back-to-back calls, host included).
 
-``--kernels-only`` runs phases 1 to 3 and the device times, and prints the
+``--kernels-only`` runs phases 1 to 3, builds the 100-tile scene for K3's
+config 5 origins, and the device times, and prints the
 kernels line without launch counts and without the final result line; run
 from a copy of this script placed beside another checkout's package, it
 times that checkout's kernels the same way.
@@ -228,10 +243,69 @@ def graph_ms(fn, replays: int = 20):
     return ms, None
 
 
-def device_ms(fn, iters: int) -> float:
-    """Device time per call of ``fn``: the self device time torch.profiler
-    records over ``iters`` calls, over ``iters``. Host time between launches
-    does not count, so this is the kernels' own time."""
+FLUSH_BYTES = 256 << 20  # written between cold launches: five times the H100's 50 MB L2
+SPIN_CYCLES = 100_000_000  # ~50 ms of a spin kernel: the host queues a timed run behind it
+_flush = []
+
+
+def flush_l2():
+    """Write FLUSH_BYTES of scratch on the device, so that the L2 holds
+    none of the next launch's inputs."""
+    import torch
+
+    if not _flush:
+        _flush.append(torch.empty(FLUSH_BYTES // 4, dtype=torch.int32, device="cuda"))
+    _flush[0].fill_(1)
+
+
+def event_ms(fn, iters: int, cold: bool) -> float:
+    """Device time per call of ``fn`` by CUDA events: one event pair around
+    each call, ``iters`` calls, queued behind a spin kernel so that the host
+    is ahead of the device and no host time falls inside a pair. With
+    ``cold`` the L2 is flushed before each call, outside its pair."""
+    import torch
+
+    fn()
+    torch.cuda.synchronize()
+    pairs = [(torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)) for _ in range(iters)]
+    torch.cuda._sleep(SPIN_CYCLES)
+    for start, end in pairs:
+        if cold:
+            flush_l2()
+        start.record()
+        fn()
+        end.record()
+    torch.cuda.synchronize()
+    return sum(start.elapsed_time(end) for start, end in pairs) / iters
+
+
+def noop_floor(iters: int = 200) -> dict:
+    """The card's floor: an empty kernel's device time (torch's spin kernel
+    for 0 cycles), cold and warm, by `event_ms`."""
+    import torch
+
+    return {"cold": event_ms(lambda: torch.cuda._sleep(0), iters, cold=True),
+            "warm": event_ms(lambda: torch.cuda._sleep(0), iters, cold=False)}
+
+
+def launch_readings(what: str, fn, nbytes: int, iters: int) -> dict:
+    """A kernel's cold and warm device time by `event_ms` against the bound
+    of ``nbytes`` at 3.35 TB/s. A cold reading faster than 105% of that
+    rate is impossible, so the measurement is wrong: it fails the run."""
+    cold = event_ms(fn, iters, cold=True)
+    rate = nbytes / (cold * 1e-3)
+    if rate > 1.05 * HBM_BYTES_PER_S:
+        raise AssertionError(f"{what}: a cold reading of {cold:.5f} ms for {nbytes / 1e6:.2f} MB is "
+                             f"{rate / 1e12:.2f} TB/s, above 105% of the card's {HBM_BYTES_PER_S / 1e12:.2f} TB/s: "
+                             "the measurement or the bytes counted are wrong")
+    return dict(ms=cold, warm_ms=event_ms(fn, iters, cold=False), bytes=nbytes,
+                bound_ms=1e3 * nbytes / HBM_BYTES_PER_S)
+
+
+def device_ms(fn, iters: int, cold: bool) -> float:
+    """Device time per call of ``fn`` by torch.profiler: the self device
+    time of every kernel but the L2 flush's, over ``iters``; with ``cold``
+    the L2 is flushed before each call as `event_ms` flushes it."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -239,9 +313,12 @@ def device_ms(fn, iters: int) -> float:
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         for _ in range(iters):
+            if cold:
+                flush_l2()
             fn()
         torch.cuda.synchronize()
-    events = [e for e in prof.key_averages() if e.device_type == torch.autograd.DeviceType.CUDA]
+    events = [e for e in prof.key_averages()
+              if e.device_type == torch.autograd.DeviceType.CUDA and "FillFunctor" not in e.key]
     us = sum(e.self_device_time_total for e in events)
     if us <= 0:
         raise AssertionError("the profiler saw no device time")
@@ -249,16 +326,23 @@ def device_ms(fn, iters: int) -> float:
 
 
 def device_times(kernels) -> None:
-    """Phase 5: each kernel's own device time on its phase-3 inputs, into
-    ``device_ms`` (``batch_shape.device_ms`` and ``fast_shape.device_ms``
-    for K1 at the batch path's and the fast frame's shapes). It runs after
-    the paths' timings: the profiler is not started before them."""
+    """Phase 5: each kernel's device time by torch.profiler on its phase-3
+    inputs, into ``device_ms`` (cold L2) and ``device_warm_ms`` of the
+    kernel or of its shape's or origin set's entry, beside the event
+    readings ``ms`` and ``warm_ms``. It runs before the paths: after them
+    (their profiles, graph captures and traces) the profiler read K3 up to
+    40% below the events, faster than the card's memory allows, while
+    before them it agrees with the events within 1%."""
     for k in kernels:
+        readings = []
         for where, fn, iters in k.pop("device_fns"):
-            (k[where] if where else k)["device_ms"] = device_ms(fn, iters)
-        extra = "".join(f", {where.replace('_', ' ')} {k[where]['device_ms']:.4f} ms"
-                        for where in ("batch_shape", "fast_shape", "prepass_shape") if where in k)
-        log(f"{k['name']}: {k['device_ms']:.4f} ms on the device per launch{extra}")
+            entry = k[where] if where else k
+            entry["device_ms"] = device_ms(fn, iters, cold=True)
+            entry["device_warm_ms"] = device_ms(fn, iters, cold=False)
+            readings.append(f"{where or 'main'} {entry['device_ms']:.4f} ms cold (events "
+                            f"{100 * (entry['device_ms'] / entry['ms'] - 1.0):+.1f}%), {entry['device_warm_ms']:.4f} "
+                            f"warm (events {100 * (entry['device_warm_ms'] / entry['warm_ms'] - 1.0):+.1f}%)")
+        log(f"{k['name']}: device time per launch by the profiler: " + "; ".join(readings))
 
 
 # ---- synthetic scene ------------------------------------------------------
@@ -405,70 +489,64 @@ def check_crossing():
     for g, w in zip(K.crossing_search(*odd, t_odd), K.crossing_search_plain(*odd, t_odd)):
         if not torch.equal(g, w):
             raise AssertionError("K1 differs from the plain version on odd shapes / NaN inputs")
-    ms = cuda_ms(lambda: K.crossing_search(e, a0, a1, a2, t), iters=50, warmup=3)
-    plain_ms = cuda_ms(lambda: K.crossing_search_plain(e, a0, a1, a2, t), iters=3)
-    nbytes = crossing_bytes(e, want[0])
-    log(f"K1 crossing_search: exact on N={e.shape[0]} W={e.shape[1]} H={t.shape[0]}; "
-        f"{ms:.4f} ms per call (plain {plain_ms:.3f} ms), "
-        f"{nbytes / 1e6:.2f} MB needed")
+    config4 = k1_readings("config 4's shape", e, t, lambda: K.crossing_search(e, a0, a1, a2, t),
+                          lambda: K.crossing_search_plain(e, a0, a1, a2, t), crossing_bytes(e, want[0]), iters=50)
     # The batch path's shape: 1024x256 panoramas with profile stride 2.
     eb, b0, b1, b2, tb = crossing_inputs(n=512, ws=512, h=256)
     want_b = K.crossing_search_plain(eb, b0, b1, b2, tb)
     if not all(torch.equal(g, w) for g, w in zip(K.crossing_search(eb, b0, b1, b2, tb), want_b)):
         raise AssertionError("K1 differs from the plain version at the batch path's shape")
-    batch_shape = dict(
-        shape=[512, 512, 256],
-        ms=cuda_ms(lambda: K.crossing_search(eb, b0, b1, b2, tb), iters=200, warmup=3),
-        plain_ms=cuda_ms(lambda: K.crossing_search_plain(eb, b0, b1, b2, tb), iters=3),
-        bound_ms=1e3 * crossing_bytes(eb, want_b[0]) / HBM_BYTES_PER_S,
-    )
-    log(f"K1 crossing_search: exact on N=512 W=512 H=256 (the batch path's shape); "
-        f"{batch_shape['ms']:.4f} ms per call (plain {batch_shape['plain_ms']:.3f} ms, bound "
-        f"{batch_shape['bound_ms']:.5f} ms)")
+    batch_shape = k1_readings("the batch path's shape", eb, tb, lambda: K.crossing_search(eb, b0, b1, b2, tb),
+                              lambda: K.crossing_search_plain(eb, b0, b1, b2, tb), crossing_bytes(eb, want_b[0]))
     ef, f0, f1, f2, tf, steep = fast_frame_crossing_inputs()
     want_f = K.crossing_search_plain(ef, f0, f1, f2, tf)
     for name, rows in (("level", tf), ("1.1 rad down", steep)):
         want_rows = want_f if rows is tf else K.crossing_search_plain(ef, f0, f1, f2, rows)
         if not all(torch.equal(g, w) for g, w in zip(K.crossing_search(ef, f0, f1, f2, rows), want_rows)):
             raise AssertionError(f"K1 differs from the plain version at the fast frame's shape ({name})")
-    fast_shape = dict(
-        shape=list(ef.shape) + [tf.shape[0]],
-        ms=cuda_ms(lambda: K.crossing_search(ef, f0, f1, f2, tf), iters=200, warmup=3),
-        plain_ms=cuda_ms(lambda: K.crossing_search_plain(ef, f0, f1, f2, tf), iters=3),
-        bound_ms=1e3 * crossing_bytes(ef, want_f[0]) / HBM_BYTES_PER_S,
-    )
-    log(f"K1 crossing_search: exact on N={ef.shape[0]} W={ef.shape[1]} H={tf.shape[0]} (the 800x450 fast "
-        f"frame's shape), level and 1.1 rad down (rows past -pi/2); {fast_shape['ms']:.4f} ms per call "
-        f"(plain {fast_shape['plain_ms']:.3f} ms, bound {fast_shape['bound_ms']:.5f} ms)")
+    fast_shape = k1_readings("the 800x450 fast frame's shape, level rows", ef, tf,
+                             lambda: K.crossing_search(ef, f0, f1, f2, tf),
+                             lambda: K.crossing_search_plain(ef, f0, f1, f2, tf), crossing_bytes(ef, want_f[0]))
     profiles, z, rows = prepass_crossing_inputs()
     for (pname, prof), (rname, thr) in ((p, r) for p in profiles.items() for r in rows.items()):
         if not all(torch.equal(g, w) for g, w in zip(K.crossing_search(prof, z, z, z, thr),
                                                      K.crossing_search_plain(prof, z, z, z, thr))):
             raise AssertionError(f"K1 differs from the plain version at the prepass shape ({pname}, {rname})")
     ep, tp = profiles["exact profile"], rows["level"]
+    kstar_p = K.crossing_search_plain(ep, z, z, z, tp)[0]
+    sky = (kstar_p >= ep.shape[0]).any(dim=0)
+    last = torch.where(sky, ep.shape[0], kstar_p.amax(dim=0).to(torch.int64) + 1).double()
     full_bytes = 4 * (4 * ep.numel() + tp.numel()) + 6 * 4 * tp.shape[0] * ep.shape[1]
-    prepass_shape = dict(
-        shape=list(ep.shape) + [tp.shape[0]],
-        ms=cuda_ms(lambda: K.crossing_search(ep, z, z, z, tp), iters=200, warmup=3),
-        plain_ms=cuda_ms(lambda: K.crossing_search_plain(ep, z, z, z, tp), iters=3),
-        bound_ms=1e3 * crossing_bytes(ep, K.crossing_search_plain(ep, z, z, z, tp)[0]) / HBM_BYTES_PER_S,
-        bound_all_read_ms=1e3 * full_bytes / HBM_BYTES_PER_S,
-    )
-    log(f"K1 crossing_search: exact on N={ep.shape[0]} W={ep.shape[1]} H={tp.shape[0]} (the 800x450 exact "
-        f"frame's prepass shape, zero payloads), exact and bound profiles, level and 1.1 rad down; "
-        f"{prepass_shape['ms']:.4f} ms per call (plain {prepass_shape['plain_ms']:.3f} ms, bound "
-        f"{prepass_shape['bound_ms']:.5f} ms for the bytes this data needs, {prepass_shape['bound_all_read_ms']:.5f} "
-        f"ms reading every input)")
+    prepass_shape = k1_readings("the 800x450 exact frame's prepass shape (the exact profile, level rows, zero "
+                                "payloads)", ep, tp, lambda: K.crossing_search(ep, z, z, z, tp),
+                                lambda: K.crossing_search_plain(ep, z, z, z, tp), crossing_bytes(ep, kstar_p))
+    prepass_shape.update(profile="exact profile, level rows", bound_all_read_ms=1e3 * full_bytes / HBM_BYTES_PER_S,
+                         sky_columns=float(sky.double().mean()), mean_last_step=float(last.mean()))
+    log(f"K1 at the prepass shape timed on: crossing_inputs(n={ep.shape[0]}, ws={ep.shape[1]}, h={tp.shape[0]}) "
+        f"(seed {SEED + 2}), the exact profile and the level view's rows; columns with a sky row "
+        f"{100 * prepass_shape['sky_columns']:.1f}%, mean last step read {prepass_shape['mean_last_step']:.1f} of "
+        f"{ep.shape[0]}; bound {prepass_shape['bound_all_read_ms']:.5f} ms reading every input")
     return dict(
         name="crossing_search", route="cuda", source="topo_renderer_tpu_torch/csrc/crossing.cu",
-        replaces="topo_renderer_tpu/ops/pallas_crossing.py:124", max_abs_err=err, ms=ms,
-        plain_ms=plain_ms, bound_ms=1e3 * nbytes / HBM_BYTES_PER_S, bound_by="bytes", library_ms=None,
-        batch_shape=batch_shape, fast_shape=fast_shape, prepass_shape=prepass_shape,
+        replaces="topo_renderer_tpu/ops/pallas_crossing.py:124", max_abs_err=err, bound_by="bytes",
+        library_ms=None, **config4, batch_shape=batch_shape, fast_shape=fast_shape, prepass_shape=prepass_shape,
         device_fns=[(None, lambda: K.crossing_search(e, a0, a1, a2, t), 50),
                     ("batch_shape", lambda: K.crossing_search(eb, b0, b1, b2, tb), 200),
                     ("fast_shape", lambda: K.crossing_search(ef, f0, f1, f2, tf), 200),
                     ("prepass_shape", lambda: K.crossing_search(ep, z, z, z, tp), 200)],
     )
+
+
+def k1_readings(where, e, t, fn, plain_fn, nbytes, iters=200):
+    """K1's readings at the shape of profile ``e`` and rows ``t``:
+    back-to-back calls (CUDA events, host included), cold and warm device
+    time (`launch_readings`), the plain version's calls."""
+    r = dict(shape=[*e.shape, t.shape[0]], call_ms=cuda_ms(fn, iters=iters, warmup=3),
+             **launch_readings(f"K1 at {where}", fn, nbytes, iters), plain_ms=cuda_ms(plain_fn, iters=3))
+    log(f"K1 crossing_search at {where}: exact; device {r['ms']:.4f} ms cold, {r['warm_ms']:.4f} warm (CUDA "
+        f"events per launch), {r['call_ms']:.4f} ms per call back to back; bound {r['bound_ms']:.5f} ms "
+        f"({nbytes / 1e6:.2f} MB this data needs), plain {r['plain_ms']:.3f} ms")
+    return r
 
 
 def prepass_crossing_inputs():
@@ -625,24 +703,42 @@ def check_window_slice():
     for level, (g, w) in enumerate(zip(got, K.window_slice_multi_plain(mixed, org[[0, 2, 3]], wsy=wsy, wsx=wsx))):
         if g.shape != w.shape or not torch.equal(g.view(torch.int32), w.view(torch.int32)):
             raise AssertionError(f"K2 level {level} of a mixed 2-D/3-D table set: window bits differ")
-    ms2 = cuda_ms(lambda: K.window_slice_multi(tables, org, wsy=wsy, wsx=wsx), iters=200, warmup=5)
-    plain2 = cuda_ms(lambda: K.window_slice_multi_plain(tables, org, wsy=wsy, wsx=wsx), iters=20)
-    ms4 = cuda_ms(lambda: K.window_slice(tables[0], org[0], wsy=wsy, wsx=wsx), iters=200, warmup=5)
-    plain4 = cuda_ms(lambda: K.window_slice_multi_plain(tables[:1], org[:1], wsy=wsy, wsx=wsx), iters=20)
+    # The library yardstick: one `copy_` per level with the origin as host
+    # ints (K4: one call; K2: L calls).
+    starts = [(min(max(sy, 0), t.shape[1] - wsy), min(max(sx, 0), t.shape[2] - wsx))
+              for t, (sy, sx) in zip(tables, origins.tolist())]
+    outs = [torch.empty_like(w) for w in want]
+
+    def library(n):
+        for out, t, (sy, sx) in zip(outs[:n], tables, starts[:n]):
+            out.copy_(t[:, sy : sy + wsy, sx : sx + wsx])
+
+    library(len(tables))
+    if not all(torch.equal(o.view(torch.int32), w.view(torch.int32)) for o, w in zip(outs, want)):
+        raise AssertionError("K2's library yardstick (copy_ of each window) differs from the plain version")
     win_bytes = 2 * wsy * wsx * 4
-    log(f"K2 window_slice_multi: bit-exact on 4 levels, on two table sets in turn and on a mixed 2-D/3-D set; "
-        f"{ms2:.4f} ms per call (plain {plain2:.3f} ms); K4 window_slice: bit-exact; {ms4:.4f} ms per call "
-        f"(plain {plain4:.3f} ms)")
-    common = dict(route="cuda", source="topo_renderer_tpu_torch/csrc/window_slice.cu",
-                  max_abs_err=0.0, bound_by="bytes", library_ms=None)
-    return [
-        dict(name="window_slice_multi", replaces="topo_renderer_tpu/ops/pallas_dma.py:68", ms=ms2,
-             plain_ms=plain2, bound_ms=1e3 * 2 * len(tables) * win_bytes / HBM_BYTES_PER_S,
-             device_fns=[(None, lambda: K.window_slice_multi(tables, org, wsy=wsy, wsx=wsx), 200)], **common),
-        dict(name="window_slice", replaces="topo_renderer_tpu/ops/pallas_dma.py:30", ms=ms4,
-             plain_ms=plain4, bound_ms=1e3 * 2 * win_bytes / HBM_BYTES_PER_S,
-             device_fns=[(None, lambda: K.window_slice(tables[0], org[0], wsy=wsy, wsx=wsx), 200)], **common),
-    ]
+    rows = []
+    for name, replaces, n, fn in (
+        ("window_slice_multi", "topo_renderer_tpu/ops/pallas_dma.py:68", len(tables),
+         lambda: K.window_slice_multi(tables, org, wsy=wsy, wsx=wsx)),
+        ("window_slice", "topo_renderer_tpu/ops/pallas_dma.py:30", 1,
+         lambda: K.window_slice(tables[0], org[0], wsy=wsy, wsx=wsx)),
+    ):
+        r = launch_readings(name, fn, 2 * n * win_bytes, iters=200)
+        r.update(call_ms=cuda_ms(fn, iters=200, warmup=5),
+                 plain_ms=cuda_ms(lambda n=n: K.window_slice_multi_plain(tables[:n], org[:n], wsy=wsy, wsx=wsx),
+                                  iters=20),
+                 library_ms=event_ms(lambda n=n: library(n), 200, cold=True),
+                 library_warm_ms=event_ms(lambda n=n: library(n), 200, cold=False), library_calls=n)
+        log(f"{name}: bit-exact; device {r['ms']:.4f} ms cold, {r['warm_ms']:.4f} warm (CUDA events per launch), "
+            f"{r['call_ms']:.4f} ms per call back to back; bound {r['bound_ms']:.5f} ms ({r['bytes'] / 1e6:.2f} MB), "
+            f"{n} copy_ call(s) {r['library_ms']:.4f} ms cold, {r['library_warm_ms']:.4f} warm; plain "
+            f"{r['plain_ms']:.3f} ms")
+        rows.append(dict(name=name, route="cuda", source="topo_renderer_tpu_torch/csrc/window_slice.cu",
+                         replaces=replaces, max_abs_err=0.0, bound_by="bytes", **r, device_fns=[(None, fn, 200)]))
+    log("K2 window_slice_multi: bit-exact on 4 levels, on two table sets in turn and on a mixed 2-D/3-D set; "
+        "K4 window_slice: bit-exact")
+    return rows
 
 
 def batched_origins(tables, batch, wsy, wsx):
@@ -682,38 +778,84 @@ def batched_bytes(tables, org, wsy, wsx):
     return total
 
 
-def check_window_slice_batched(batch=256):
+def k3_readings(what, tables, org, wsy, wsx):
+    """K3 against its plain version at origins ``org`` ``i32[B, L, 2]``
+    (bit for bit), then its readings there: cold and warm device time
+    against the bytes these origins need (`batched_bytes`), back-to-back
+    calls and the plain version's calls. Returns (readings, the call)."""
     import torch
 
+    from topo_renderer_tpu_torch.ops import window_slice as K
+
+    def fn():
+        return K.window_slice_multi_batched(tables, org, wsy=wsy, wsx=wsx)
+
+    got = fn()
+    torch.cuda.synchronize()
+    want = K.window_slice_multi_batched_plain(tables, org, wsy=wsy, wsx=wsx)
+    for level, (g, w) in enumerate(zip(got, want)):
+        if g.shape != w.shape or not torch.equal(g.view(torch.int32), w.view(torch.int32)):
+            raise AssertionError(f"K3 at {what}, level {level}: window bits differ from the plain version")
+    del got, want
+    batch = org.shape[0]
+    r = dict(origins=what, **launch_readings(f"K3 at {what}", fn, batched_bytes(tables, org, wsy, wsx), iters=20))
+    out_words = sum((t.shape[0] if t.dim() == 3 else 1) * batch * wsy * wsx for t in tables)
+    every = 2 * 4 * out_words
+    # The write floor: the windows' bytes written alone, by one zero_.
+    writes = torch.empty(out_words, dtype=torch.int32, device=org.device)
+    r.update(call_ms=cuda_ms(fn, iters=20, warmup=2), bound_every_window_ms=1e3 * every / HBM_BYTES_PER_S,
+             writes_only_ms=event_ms(writes.zero_, 20, cold=True),
+             plain_ms=cuda_ms(lambda: K.window_slice_multi_batched_plain(tables, org, wsy=wsy, wsx=wsx), iters=2))
+    del writes
+    log(f"K3 window_slice_multi_batched at {what}: bit-exact on B={batch} x {len(tables)} levels; device "
+        f"{r['ms']:.4f} ms cold, {r['warm_ms']:.4f} warm (CUDA events per launch), {r['call_ms']:.4f} ms per call "
+        f"back to back; bound {r['bound_ms']:.4f} ms ({r['bytes'] / 1e9:.3f} GB: the covered table texels once, "
+        f"the windows written once), {r['bound_every_window_ms']:.4f} ms reading every window "
+        f"({every / 1e9:.3f} GB); the windows' bytes written alone (one zero_) {r['writes_only_ms']:.4f} ms cold; "
+        f"plain {r['plain_ms']:.3f} ms")
+    return r, fn
+
+
+def check_window_slice_batched(batch=256):
+    """K3 at phase 3's random origins. The row's main readings come from
+    config 5's own origins (`config5_window_readings`); no single PyTorch
+    call takes per-eye origins that live on the device, so it has no
+    library time."""
     from topo_renderer_tpu_torch.ops import window_slice as K
 
     tables = window_tables()
     wsy, wsx = 272, 512
     org = batched_origins(tables, batch, wsy, wsx)
-    got = K.window_slice_multi_batched(tables, org, wsy=wsy, wsx=wsx)
-    torch.cuda.synchronize()
-    want = K.window_slice_multi_batched_plain(tables, org, wsy=wsy, wsx=wsx)
-    for level, (g, w) in enumerate(zip(got, want)):
-        if g.shape != (batch, 2, wsy, wsx) or not torch.equal(g.view(torch.int32), w.view(torch.int32)):
-            raise AssertionError(f"K3 level {level}: window bits differ from the plain version")
-    del got, want
-    ms3 = cuda_ms(lambda: K.window_slice_multi_batched(tables, org, wsy=wsy, wsx=wsx), iters=20, warmup=2)
-    plain3 = cuda_ms(lambda: K.window_slice_multi_batched_plain(tables, org, wsy=wsy, wsx=wsx), iters=2)
+    r, fn = k3_readings("phase 3's random (8, 128)-aligned origins", tables, org, wsy, wsx)
     k2_loop = cuda_ms(lambda: [K.window_slice_multi(tables, org[b], wsy=wsy, wsx=wsx) for b in range(batch)],
                       iters=3)
-    nbytes = batched_bytes(tables, org, wsy, wsx)
-    window_bytes = 2 * len(tables) * batch * 2 * wsy * wsx * 4  # every window read and written
-    log(f"K3 window_slice_multi_batched: bit-exact on B={batch} x {len(tables)} levels; {ms3:.4f} ms "
-        f"per call (plain {plain3:.3f} ms, {batch} x K2 {k2_loop:.3f} ms); {nbytes / 1e9:.3f} GB needed (the "
-        f"covered table texels once, the windows written once; {window_bytes / 1e9:.3f} GB reading every "
-        f"window), {window_bytes / (ms3 * 1e-3) / 1e12:.2f} TB/s of window traffic")
+    log(f"K3 at the random origins: {batch} x K2 {k2_loop:.3f} ms")
     return dict(
         name="window_slice_multi_batched", route="cuda", source="topo_renderer_tpu_torch/csrc/window_slice.cu",
-        replaces="topo_renderer_tpu/ops/pallas_dma.py:113", max_abs_err=0.0, ms=ms3, plain_ms=plain3,
-        bound_ms=1e3 * nbytes / HBM_BYTES_PER_S, bound_by="bytes", library_ms=None, k2_loop_ms=k2_loop,
-        bound_every_window_ms=1e3 * window_bytes / HBM_BYTES_PER_S,
-        device_fns=[(None, lambda: K.window_slice_multi_batched(tables, org, wsy=wsy, wsx=wsx), 20)],
+        replaces="topo_renderer_tpu/ops/pallas_dma.py:113", max_abs_err=0.0, bound_by="bytes", library_ms=None,
+        random_origins=dict(r, k2_loop_ms=k2_loop), device_fns=[("random_origins", fn, 20)],
     )
+
+
+def config5_window_readings(k3, engine, centre, batch=256):
+    """K3 at config 5's own origins: the ``i32[256, L, 2]`` that
+    `ops/panorama.py::_window_batch` computes for `batch_eyes` and hands to
+    K3, on the 100-tile scene's ``win_attr_2d`` tables at the path's window
+    shape. Its readings become K3's main ones."""
+    import torch
+
+    from topo_renderer_tpu_torch.ops.panorama import PanoramaSpec, _window_batch
+
+    spec = PanoramaSpec.fast(1024, 256, n_steps=512)
+    wb = _window_batch(engine.mosaic, batch_eyes(centre, batch), spec)
+    levels = sorted(wb.wins)
+    tables = [engine.mosaic.win_attr_2d[lv] for lv in levels]
+    org = torch.stack([torch.stack([wb.sy[lv], wb.sx[lv]], dim=-1) for lv in levels], dim=1).contiguous()
+    wsy, wsx = wb.wins[levels[0]].shape[-2:]
+    del wb
+    r, fn = k3_readings(f"config 5's own origins (levels {levels})", tables, org, wsy, wsx)
+    k3.update(r)
+    k3["device_fns"].insert(0, (None, fn, 20))
 
 
 # ---- phase 4: the engine's panoramas ------------------------------------------
@@ -2596,9 +2738,44 @@ def geo_scene_paths(engine, cam, centre, batch=256):
         f"{batch_ms / 1e3:.3f} s per call (CUDA events) = {batch / (batch_ms * 1e-3):.1f} panoramas/s against "
         f"{ref_ms / 1e3:.3f} s = {batch / (ref_ms * 1e-3):.1f} panoramas/s replicated; pass 1 "
         f"holds every eye's windows: peak {peak / 1e9:.2f} GB above the call's start; launches {counts['geo_batch']}")
+    check_band_windows(m, eyes, bspec)
     del geo, m
     torch.cuda.empty_cache()
     return counts
+
+
+def check_band_windows(mosaic, eyes, spec):
+    """K3 at the geo batch's band origins: pass 1's band windows
+    (`parallel/sharded_mosaic.py::_sharded_windows`) cut once more for the
+    same eyes, each K3 launch held bit for bit against the plain version on
+    its band tables and band-clamped origins."""
+    import torch
+
+    from topo_renderer_tpu_torch.ops import window_slice as K
+    from topo_renderer_tpu_torch.ops.geometry import f32
+    from topo_renderer_tpu_torch.ops.panorama import _eye_raster
+    from topo_renderer_tpu_torch.parallel import sharded_mosaic as S
+
+    kernel, shapes = S.window_slice_multi_batched, []
+
+    def checked(tables, origins, *, wsy, wsx):
+        got = kernel(tables, origins, wsy=wsy, wsx=wsx)
+        want = K.window_slice_multi_batched_plain(tables, origins, wsy=wsy, wsx=wsx)
+        if not all(torch.equal(g.view(torch.int32), w.view(torch.int32)) for g, w in zip(got, want)):
+            raise AssertionError(f"K3 at the geo batch's band origins (launch {len(shapes)}): window bits differ "
+                                 "from the plain version")
+        shapes.append(f"{tuple(origins.shape)} over tables {[tuple(t.shape) for t in tables]}")
+        return got
+
+    S.window_slice_multi_batched = checked
+    try:
+        S._sharded_windows(mosaic, *_eye_raster(mosaic, f32(eyes, mosaic.device)), spec, batched=True)
+    finally:
+        S.window_slice_multi_batched = kernel
+    if len(shapes) != GEO_BANDS:
+        raise AssertionError(f"geo band windows: {len(shapes)} K3 launches, not {GEO_BANDS}")
+    log(f"geo batch: K3 equal to its plain version bit for bit at each band's origins ({len(shapes)} launches: "
+        f"{shapes[0]})")
 
 
 def geo_streaming_path():
@@ -2918,6 +3095,9 @@ def main(argv) -> int:
             if "Function properties" in line or "registers" in line or "spill" in line:
                 log(f"  {name}: {line.strip()}")
 
+    floor = noop_floor()
+    log(f"floor: an empty kernel (torch.cuda._sleep(0)) {floor['cold']:.4f} ms cold, {floor['warm']:.4f} ms warm "
+        f"(CUDA events per launch, as every kernel below)")
     k1 = check_crossing()
     if not kernels_only:
         check_crossing_edges()
@@ -2925,17 +3105,22 @@ def main(argv) -> int:
     torch.cuda.empty_cache()
     k3 = check_window_slice_batched()
     torch.cuda.empty_cache()
-    order = ("name", "route", "source", "replaces", "launches", "max_abs_err", "ms", "device_ms", "plain_ms",
-             "bound_ms", "bound_by", "library_ms", "launches_per_call", "batch_shape", "fast_shape",
-             "prepass_shape", "bound_every_window_ms")
+    order = ("name", "route", "source", "replaces", "launches", "max_abs_err", "ms", "warm_ms", "device_ms",
+             "device_warm_ms", "call_ms", "plain_ms", "bound_ms", "bound_by", "bytes", "library_ms", "library_warm_ms",
+             "library_calls", "floor_ms", "floor_warm_ms", "origins", "bound_every_window_ms", "writes_only_ms",
+             "launches_per_call", "batch_shape", "fast_shape", "prepass_shape", "random_origins")
     kernels = [k1, k2, k3, k4]
+    for k in kernels:
+        k.update(floor_ms=floor["cold"], floor_warm_ms=floor["warm"])
+    if not kernels_only:
+        small_scene_agreement()
+    engine, centre = build_scene()
+    config5_window_readings(k3, engine, centre)
+    device_times(kernels)
     if kernels_only:
-        device_times(kernels)
         print(json.dumps({"kernels": [{key: k[key] for key in order if key in k} for k in kernels]}), flush=True)
         print(card, flush=True)
         return 0
-    small_scene_agreement()
-    engine, centre = build_scene()
     per_call = {}
     per_call["panorama"], frame_ms = panorama_path(engine, centre)
     per_call["batch"], batch_ms, panos_per_s = batch_path(engine, centre)
@@ -2953,7 +3138,6 @@ def main(argv) -> int:
     per_call.update(host_runtime_path())
     per_call.update(frontends_path())
     per_call.update(host_build_path())
-    device_times(kernels)
     # ``launches``: one call of the path each kernel serves (K3 and K1: the
     # batch; K2: the single panorama); every path's count is in
     # ``launches_per_call``. ``ms``/``bound_ms`` of K1 are at config 4's
@@ -2966,7 +3150,7 @@ def main(argv) -> int:
         k["launches_per_call"] = {path: c[k["name"]] for path, c in per_call.items()}
     log(f"frame: {frame_ms:.2f} ms (CUDA events); config 5: {panos_per_s:.1f} panoramas/s "
         f"({batch_ms:.1f} ms per call of 256 viewpoints); "
-        f"K3 {k3['ms']:.4f} ms vs 256 x K2 {k3['k2_loop_ms']:.3f} ms")
+        f"K3 {k3['ms']:.4f} ms cold at its origins vs 256 x K2 {k3['random_origins']['k2_loop_ms']:.3f} ms")
     busy = (f"device busy {fast_profile[1]:.2f} of {fast_profile[0]:.2f} ms "
             f"({100 * fast_profile[1] / fast_profile[0]:.1f}%)" if fast_profile else "device busy not measured")
     log(f"fast frame (config 6): median {np.median(fast_ms):.2f} ms host clock incl. pull and decode, "
@@ -2979,8 +3163,8 @@ def main(argv) -> int:
         f"full budget, {np.median(exact_ms['interactive']):.2f} ms on the interactive rung; device only "
         f"{exact_dev_ms['full']:.3f} / {exact_dev_ms['interactive']:.3f} ms (CUDA graph replay); host syncs inside "
         f"a frame 0; {exact_busy}; K1 {per_call['exact_frame']['crossing_search']} launches per frame; K1 at the "
-        f"prepass shape {k1['prepass_shape']['ms']:.4f} ms per call, {k1['prepass_shape']['device_ms']:.4f} ms "
-        f"on the device, bound {k1['prepass_shape']['bound_ms']:.5f} ms")
+        f"prepass shape {k1['prepass_shape']['ms']:.4f} ms cold (CUDA events), {k1['prepass_shape']['device_ms']:.4f} "
+        f"ms by the profiler, bound {k1['prepass_shape']['bound_ms']:.5f} ms")
     print(json.dumps({"kernels": [{key: k[key] for key in order if key in k} for k in kernels]}),
           flush=True)
     print(card, flush=True)

@@ -28,7 +28,7 @@ import torch
 from topo_renderer_tpu_torch import cuda_build
 
 MAX_LEVELS = 16  # csrc/window_slice.cu's parameter-struct capacity
-MAX_BATCH = 65535  # csrc/window_slice.cu's grid: gridDim.z runs over viewpoints
+MAX_BATCH = 65535  # csrc/window_slice.cu's limit on viewpoints per launch
 
 
 def window_slice_multi_plain(tables, origins, *, wsy: int, wsx: int):
