@@ -11,7 +11,8 @@ Phases (any failure exits non-zero):
   3. hold each kernel against its plain PyTorch version on the card at the
      shapes the panoramas and the perspective frames give it: K1 (crossing
      search), K2/K4 (window copies) and K3 (the batched window copy, 256
-     viewpoints) must agree exactly, bit for bit. K1 also at the fast
+     viewpoints) must agree exactly, bit for bit. K1 also at config 2's
+     shape (N 512, W 1024, H 512), at the fast
      frame's shape (N 512, W 768, H 1056; level and with rows past -pi/2),
      at the exact frame's prepass shape (N 896, W 1152, H 840, zero
      payloads; exact and bound profiles, level and 1.1 rad down), on ties,
@@ -34,6 +35,14 @@ Phases (any failure exits non-zero):
      a. three 4096 x 1024 atmospheric LOD panoramas of 512 steps with
         labels; every frame must launch K1 and K2 once, hit terrain and
         sky, and carry labels;
+     a2. config 2 as bench.py runs it: `extract_clipmap_windows` then the
+        functional `render_panorama` at 2048 x 512, 512 steps, with
+        distance fog, on phase 4a's camera; every call launches K1 and K2
+        once (K2's launch arguments found in the cache), hits terrain and
+        sky and has > 200 colours; the host-clock median of 5 calls, the
+        host syncs inside a call and the device-only ms by CUDA-graph
+        replay; K1 and K2 held bit for bit against their plain versions on
+        the inputs one call gives them; the phase's own seconds;
      b. config 5: `render_batch` of 256 viewpoints at 1024 x 256, 512
         steps, atmosphere; one call launches K3 once, K2 never and K1 256
         times, sampled eyes equal their single-eye render bit for bit, and
@@ -131,7 +140,9 @@ Phases (any failure exits non-zero):
         the ring-wrapped contour and its label visibility;
         `Application(geo_shard=2)` must raise RuntimeError on one card.
      Small scenes rendered on the card and on the CPU (plain versions) must
-     agree, for the fast preset, the fallback's spec, the fast frame
+     agree, for the fast preset (atmospheric, distance fog and no fog; its
+     colours at the golden tolerance, at most 1% of pixels beyond 2/255),
+     the fallback's spec, the fast frame
      (level, 1.1 rad down and across azimuth ±pi) and the exact frame at
      320 x 180 (guided, unguided and both marches without the own-texel
      leg; the unguided two-level frame's host syncs are printed);
@@ -496,6 +507,12 @@ def check_crossing():
     want_b = K.crossing_search_plain(eb, b0, b1, b2, tb)
     if not all(torch.equal(g, w) for g, w in zip(K.crossing_search(eb, b0, b1, b2, tb), want_b)):
         raise AssertionError("K1 differs from the plain version at the batch path's shape")
+    # Config 2's shape: 2048x512 panoramas of 512 steps with profile stride 2.
+    e2, c0, c1, c2, t2 = crossing_inputs(n=512, ws=1024, h=512)
+    if not all(torch.equal(g, w) for g, w in zip(K.crossing_search(e2, c0, c1, c2, t2),
+                                                 K.crossing_search_plain(e2, c0, c1, c2, t2))):
+        raise AssertionError("K1 differs from the plain version at config 2's shape")
+    del e2, c0, c1, c2, t2
     batch_shape = k1_readings("the batch path's shape", eb, tb, lambda: K.crossing_search(eb, b0, b1, b2, tb),
                               lambda: K.crossing_search_plain(eb, b0, b1, b2, tb), crossing_bytes(eb, want_b[0]))
     ef, f0, f1, f2, tf, steep = fast_frame_crossing_inputs()
@@ -968,6 +985,112 @@ def panorama_path(engine, centre, frames=3):
     log(f"frame (CUDA events, 5 frames): {frame_ms:.2f} ms")
     frame_profile(lambda: engine.render_panorama(cam, spec, fog="atmosphere"))
     return per_frame, frame_ms
+
+
+def config2_path(engine, centre, calls=5):
+    """Phase 4a2, bench.py's config 2: the 2048 x 512 panorama of 512 steps
+    with distance fog, in bench.py's form (`extract_clipmap_windows`, then
+    the functional `render_panorama` with those windows and bench.py's sun;
+    no labels) on phase 4a's camera. Every call must launch K1 and K2 once,
+    take K2's launch arguments from the entry phase 4a's frames left in the
+    cache (the engine's tables, the same window shape), hit terrain and sky
+    and have > 200 colours. Returns the launch counts of one call and its
+    readings: the host-clock median of ``calls`` calls after a warm-up, the
+    host syncs inside a call and, where there are none, the device-only ms
+    by CUDA-graph replay."""
+    import torch
+
+    from topo_renderer_tpu_torch.ops import window_slice
+    from topo_renderer_tpu_torch.ops.panorama import PanoramaSpec, extract_clipmap_windows, render_panorama
+    from topo_renderer_tpu_torch.ops.shading import to_srgb8_image
+
+    eye = camera_at(*centre, 300.0).eye
+    sun = torch.tensor([0.3, 0.5, 0.8])  # bench.py's
+    spec = PanoramaSpec.fast(width=2048, height=512, n_steps=512)
+
+    def call():
+        win = extract_clipmap_windows(engine.mosaic, eye, spec)
+        return render_panorama(engine.mosaic, eye, spec, sun, fog="distance", windows=win)
+
+    t_phase = time.perf_counter()
+    cached = set(window_slice._args_cache)
+    call()  # warm-up
+    torch.cuda.synchronize()
+    host_ms, counts = [], None
+    for i in range(calls):
+        reset_counts()
+        t0 = time.perf_counter()
+        out = call()
+        torch.cuda.synchronize()
+        host_ms.append(1e3 * (time.perf_counter() - t0))
+        counts = read_counts()
+        expect_counts(f"config 2 call {i}", counts, {"crossing_search": 1, "window_slice_multi": 1,
+                                                     "window_slice_multi_batched": 0, "window_slice": 0})
+    if set(window_slice._args_cache) != cached:
+        raise AssertionError("config 2: K2's launch arguments were built anew, not found in the cache")
+    color = to_srgb8_image(out["color"]).cpu().numpy()
+    hit = float(out["hit"].float().mean())
+    colors = len(np.unique(color.reshape(-1, 3), axis=0))
+    if color.shape != (512, 2048, 3) or not bool(torch.isfinite(out["color"]).all()):
+        raise AssertionError(f"config 2: bad colour output {color.shape}")
+    if not 0.0 < hit < 1.0 or colors <= 200:
+        raise AssertionError(f"config 2: hit {hit:.3f}, {colors} colours")
+    syncs = host_syncs(call)
+    dev_ms, why = graph_ms(call) if not syncs else (None, f"{len(syncs)} host syncs inside a call")
+    check_config2_kernels(call)
+    log(f"config 2: 2048x512 panorama, 512 steps, distance fog (bench.py's extract_clipmap_windows + "
+        f"render_panorama): median {np.median(host_ms):.2f} ms host clock of {calls} calls "
+        f"({', '.join(f'{ms:.2f}' for ms in host_ms)}), {len(syncs)} host syncs inside a call, device only "
+        f"{'not measured (' + why + ')' if dev_ms is None else f'{dev_ms:.3f} ms'} (CUDA graph replay); "
+        f"K1 {counts['crossing_search']}, K2 {counts['window_slice_multi']} per call, K2's launch arguments from "
+        f"the cache; hit {hit:.3f}, {colors} colours")
+    for where in syncs:
+        log(f"  config 2 host sync: {where}")
+    phase_s = time.perf_counter() - t_phase
+    log(f"config 2 phase: {phase_s:.1f} s in all (warm-up, timed calls, sync count, graph replay, kernel checks)")
+    return counts, {"host_ms": host_ms, "host_syncs": len(syncs), "graph_ms": dev_ms, "phase_s": phase_s}
+
+
+def check_config2_kernels(call):
+    """Hold K1 and K2 against their plain versions bit for bit on the very
+    inputs one config-2 call gives them, caught at the names
+    `ops/panorama.py` calls them by."""
+    import torch
+
+    from topo_renderer_tpu_torch.ops import crossing, panorama, window_slice
+
+    seen = {}
+
+    def catch(name, fn):
+        def wrapper(*args, **kw):
+            seen[name] = (args, kw)
+            return fn(*args, **kw)
+        return wrapper
+
+    real = {name: getattr(panorama, name) for name in ("crossing_search", "window_slice_multi")}
+    for name, fn in real.items():
+        setattr(panorama, name, catch(name, fn))
+    try:
+        call()
+    finally:
+        for name, fn in real.items():
+            setattr(panorama, name, fn)
+    if set(seen) != set(real):
+        raise AssertionError(f"config 2: caught {sorted(seen)} of K1 and K2's inputs")
+    args, kw = seen["crossing_search"]
+    got, want = crossing.crossing_search(*args, **kw), crossing.crossing_search_plain(*args, **kw)
+    for g, w, name in zip(got, want, ("kstar", "theta", "m_lo", "n0", "n1", "n2")):
+        if not torch.equal(g, w):
+            raise AssertionError(f"config 2: K1 {name} differs from the plain version in "
+                                 f"{(g != w).sum().item()} elements")
+    e, t = args[0], args[4]
+    args, kw = seen["window_slice_multi"]
+    got, want = window_slice.window_slice_multi(*args, **kw), window_slice.window_slice_multi_plain(*args, **kw)
+    for level, (g, w) in enumerate(zip(got, want)):
+        if not torch.equal(g.view(torch.int32), w.view(torch.int32)):
+            raise AssertionError(f"config 2: K2 window {level} differs from the plain version")
+    log(f"config 2's own kernel inputs: K1 at N {e.shape[0]}, W {e.shape[1]}, H {t.shape[0]} and K2 at "
+        f"{len(got)} windows of {kw['wsy']} x {kw['wsx']} words equal their plain versions bit for bit")
 
 
 def batch_eyes(centre, count, alt=2500.0):
@@ -2994,19 +3117,27 @@ def small_scene_agreement():
     peaks = make_peaks(47.0, 12.0, 16, 0.1, 46, 11, 2)
     cam = camera_at(47.0, 12.0, 300.0)
     engines = {dev: build_engine(dev, tiles, peaks) for dev in ("cuda", "cpu")}
-    specs = {"fast": PanoramaSpec.fast(512, 128, n_steps=256),
-             "fallback": PanoramaSpec(width=1024, height=256, n_steps=512, n_refine=2)}
-    for name, spec in specs.items():
-        g, c = (engines[dev].render_panorama(cam, spec, fog="atmosphere") for dev in ("cuda", "cpu"))
+    fast = PanoramaSpec.fast(512, 128, n_steps=256)
+    # The fast preset under each fog mode (bench.py's config 2 takes distance
+    # fog), its colours also at the golden tolerance: distance fog's
+    # `torch.exp` need not round on the card as on the CPU, and a last bit
+    # flips a pixel's dither.
+    panoramas = {"fast": (fast, "atmosphere"), "fast distance fog": (fast, "distance"),
+                 "fast no fog": (fast, None),
+                 "fallback": (PanoramaSpec(width=1024, height=256, n_steps=512, n_refine=2), "atmosphere")}
+    for name, (spec, fog) in panoramas.items():
+        g, c = (engines[dev].render_panorama(cam, spec, fog=fog, composite=False) for dev in ("cuda", "cpu"))
         hit_agree = float((g.hit == c.hit).mean())
         both = g.hit & c.hit
         rel = np.abs(g.depth - c.depth)[both].max() if both.any() else 0.0
-        if hit_agree < 0.99 or rel > 1e-3 or not 0.0 < g.hit.mean() < 1.0:
+        far = float((np.abs(g.color.astype(np.int16) - c.color.astype(np.int16)) > 2).any(-1).mean())
+        if (hit_agree < 0.99 or rel > 1e-3 or not 0.0 < g.hit.mean() < 1.0
+                or (spec is fast and far > 0.01)):
             raise AssertionError(f"small scene {name}: card vs CPU hit agreement {hit_agree:.4f}, "
-                                 f"depth diff {rel:.2e}, hit {g.hit.mean():.3f}")
+                                 f"depth diff {rel:.2e}, hit {g.hit.mean():.3f}, pixels beyond 2/255 {far:.4f}")
         n_g, n_c = (sum(len(v) for v in r.visible_labels.values()) for r in (g, c))
         log(f"small scene {name}: card vs CPU hit agreement {hit_agree:.4f}, max depth diff {rel:.2e}, "
-            f"labels {n_g} / {n_c}")
+            f"pixels beyond 2/255 {far:.4f}, labels {n_g} / {n_c}")
     # The fast frame: level, 1.1 rad down (window rows past -pi/2), and a
     # window across azimuth ±pi; the exact frame, guided and unguided.
     fast_kw = dict(n_steps=256, fast=True)
@@ -3123,6 +3254,7 @@ def main(argv) -> int:
         return 0
     per_call = {}
     per_call["panorama"], frame_ms = panorama_path(engine, centre)
+    per_call["config2"], config2 = config2_path(engine, centre)
     per_call["batch"], batch_ms, panos_per_s = batch_path(engine, centre)
     per_call["fallback"] = fallback_path(engine, centre)
     cam = fast_camera(engine, centre)
@@ -3151,6 +3283,10 @@ def main(argv) -> int:
     log(f"frame: {frame_ms:.2f} ms (CUDA events); config 5: {panos_per_s:.1f} panoramas/s "
         f"({batch_ms:.1f} ms per call of 256 viewpoints); "
         f"K3 {k3['ms']:.4f} ms cold at its origins vs 256 x K2 {k3['random_origins']['k2_loop_ms']:.3f} ms")
+    c2_dev = "not measured" if config2["graph_ms"] is None else f"{config2['graph_ms']:.3f} ms"
+    log(f"config 2 (2048x512, distance fog): median {np.median(config2['host_ms']):.2f} ms host clock, "
+        f"{config2['host_syncs']} host syncs inside a call, device only {c2_dev} (CUDA graph replay), "
+        f"the phase {config2['phase_s']:.1f} s; {card}")
     busy = (f"device busy {fast_profile[1]:.2f} of {fast_profile[0]:.2f} ms "
             f"({100 * fast_profile[1] / fast_profile[0]:.1f}%)" if fast_profile else "device busy not measured")
     log(f"fast frame (config 6): median {np.median(fast_ms):.2f} ms host clock incl. pull and decode, "

@@ -138,3 +138,60 @@ def test_exact_frame_needs_cuda_by_default(monkeypatch, engines):
     pe, pcam, *_ = engines
     res = pe.render(pcam, 32, 24, n_steps=64, n_refine=4, with_labels=False, host_copy=False)
     assert res.color.shape == (24, 32, 3) and res.hit.device.type == "cpu"
+
+
+@pytest.mark.parametrize("fail_in", ["render_perspective", "_frame_labels", "encode_frame"],
+                         ids=["march", "label_pass", "wire_encode"])
+def test_failed_exact_frame_keeps_last_pose(monkeypatch, fail_in):
+    """An exact frame whose build raises (in the march, the label pass or
+    the wire encode) leaves `_last_exact_pose` at the last frame built and
+    the exception reaches the caller, so the next "auto" frame back at that
+    pose gets the full budget, not the interactive rung. (JAX's engine
+    records the pose before the build; the port repairs that.)"""
+    from tests.helpers import make_tile
+    from topo_renderer_tpu_torch.ops.geometry import ecef_from_geo
+    from topo_renderer_tpu_torch.render import engine as engine_mod
+
+    tile = make_tile(49, 20, n=33, span_deg=0.02)
+    t = tile.transform
+    pe = RenderEngine(device="cpu")
+    loc = GeoLocation.from_coord(49, 20)
+    pe.add_terrain(loc, tile.heights, CoordinateTransform(t.raster_point, t.model_point, t.pixel_scale))
+    pe.add_peaks(loc, [PeakInstance(position=ecef_from_geo(2000.0, 20.015, 49.01).numpy(), name="Gipfel")])
+    cam_a = Camera().reset(GeoCoord(49.01, 20.003), 1800.0)
+    cam_b = dataclasses.replace(cam_a, yaw=0.4)
+
+    budgets, failing = [], [False]
+    march = engine_mod.render_perspective
+
+    def spy(*args, **kw):
+        budgets.append(kw["guided_kw"])
+        if failing[0] and fail_in == "render_perspective":
+            raise RuntimeError("frame build failed")
+        return march(*args, **kw)
+
+    monkeypatch.setattr(engine_mod, "render_perspective", spy)
+    if fail_in != "render_perspective":
+        owner = engine_mod.transport if fail_in == "encode_frame" else engine_mod
+        real = getattr(owner, fail_in)
+
+        def stage(*args, **kw):
+            if failing[0]:
+                raise RuntimeError("frame build failed")
+            return real(*args, **kw)
+
+        monkeypatch.setattr(owner, fail_in, stage)
+    kw = dict(n_steps=64, n_refine=4, host_copy=False, wire="yuv420" if fail_in == "encode_frame" else None)
+
+    pe.render(cam_a, 32, 24, **kw)
+    pose_a = RenderEngine._camera_pose_key(cam_a)
+    assert pe._last_exact_pose == pose_a
+    failing[0] = True
+    with pytest.raises(RuntimeError, match="frame build failed"):
+        pe.render(cam_b, 32, 24, **kw)
+    assert pe._last_exact_pose == pose_a
+    failing[0] = False
+    pe.render(cam_a, 32, 24, **kw)
+    rung = tuple(sorted(RenderEngine._EXACT_RUNG_INTERACTIVE))
+    assert budgets == [(), rung, ()]
+    assert pe._last_exact_pose == pose_a

@@ -46,7 +46,7 @@ def frac_bad(a, b):
     return float((np.abs(a.astype(np.int32) - b.astype(np.int32)) > 2).any(axis=-1).mean())
 
 
-def render_both(jax_mosaic, eye, sun, **spec_kw):
+def render_both(jax_mosaic, eye, sun, fog="atmosphere", **spec_kw):
     """(port, jitted JAX, JAX primitive by primitive) outputs: u8 frame
     and hit mask each."""
     js, ps = JaxSpec.fast(**SPEC_KW), PanoramaSpec.fast(**SPEC_KW)
@@ -54,14 +54,13 @@ def render_both(jax_mosaic, eye, sun, **spec_kw):
         js, ps = dataclasses.replace(js, **spec_kw), dataclasses.replace(ps, **spec_kw)
     out = {}
     po = render_panorama(
-        jax_mosaic_to_port(jax_mosaic), torch.from_numpy(eye), ps, torch.from_numpy(sun),
-        fog="atmosphere",
+        jax_mosaic_to_port(jax_mosaic), torch.from_numpy(eye), ps, torch.from_numpy(sun), fog=fog,
     )
     out["port"] = (to_srgb8_image(po["color"]).numpy(), po["hit"].numpy())
-    jo = jax_render(jax_mosaic, eye, js, sun, fog="atmosphere")
+    jo = jax_render(jax_mosaic, eye, js, sun, fog=fog)
     out["jit"] = (np.asarray(jax_srgb8(jo["color"])), np.asarray(jo["hit"]))
     with jax.disable_jit():
-        jo = jax_render(jax_mosaic, eye, js, sun, fog="atmosphere")
+        jo = jax_render(jax_mosaic, eye, js, sun, fog=fog)
         out["eager"] = (np.asarray(jax_srgb8(jo["color"])), np.asarray(jo["hit"]))
     return out
 
@@ -84,6 +83,19 @@ def test_golden_scene():
     out = render_both(mosaic, eye, sun)
     assert out["port"][0].shape == golden.shape
     check_frames(out, golden)
+
+
+@pytest.mark.parametrize("fog", ["distance", None], ids=["distance", "no_fog"])
+def test_golden_scene_other_fog(fog):
+    """The golden scene with bench.py config 2's distance fog and with no
+    fog: the same tolerances as the atmospheric frame (the golden frame is
+    atmospheric, so it is not compared)."""
+    mosaic, cam, _ = small_scene(n=49, span_deg=0.04, height_above=400.0)
+    eye = np.array(cam.eye, np.float32)
+    sun = np.array(cam.sun_angle.to_vec3(), np.float32)
+    out = render_both(mosaic, eye, sun, fog=fog)
+    assert out["port"][0].shape == np.load(GOLDEN).shape
+    check_frames(out)
 
 
 def test_window_path_scene():

@@ -326,6 +326,50 @@ def test_failed_render_rolls_the_camera_back(frontend, monkeypatch):
     assert sess.camera is other
 
 
+def test_failed_pull_gives_the_exact_pose_back(frontend, monkeypatch):
+    """An exact frame whose pull to the host raises after the render
+    returned gives the engine's exact-frame pose back with the camera, so
+    the next "auto" frame back at the old pose gets the full budget, not the
+    interactive rung; the exception reaches the caller."""
+    from topo_renderer_tpu_torch.render import engine as engine_mod
+
+    fe, _ = frontend
+    fe.set_location(VIEW)
+    fe.app.pump_events()
+    sid = fe.new_session()["id"]
+    sess = fe._sessions[sid]
+    cam_a = dataclasses.replace(sess.camera.reset(GeoCoord(**VIEW), 3200.0), pitch=0.5)
+    cam_b = dataclasses.replace(cam_a, yaw=float(cam_a.yaw) + 0.4)
+    budgets = []
+    march = engine_mod.render_perspective
+
+    def spy(*args, **kw):
+        budgets.append(kw["guided_kw"])
+        return march(*args, **kw)
+
+    monkeypatch.setattr(engine_mod, "render_perspective", spy)
+    body = {"events": [], "force": True, "exact": True, "width": 64, "height": 64}
+    sess.camera = cam_a
+    fe.frame(sid, body)
+    pose_a = fe.app.engine._camera_pose_key(sess.camera)
+    assert fe.app.engine._last_exact_pose == pose_a
+
+    def fail(wire):
+        raise RuntimeError("pull failed")
+
+    monkeypatch.setattr(server, "_start_pull", fail)
+    sess.camera = cam_b
+    with pytest.raises(RuntimeError, match="pull failed"):
+        fe.frame(sid, body)
+    assert fe.app.engine._last_exact_pose == pose_a
+    monkeypatch.undo()
+    monkeypatch.setattr(engine_mod, "render_perspective", spy)
+    sess.camera = cam_a
+    fe.frame(sid, body)
+    assert fe.app.engine._camera_pose_key(sess.camera) == pose_a
+    assert budgets == [(), tuple(sorted(fe.app.engine._EXACT_RUNG_INTERACTIVE)), ()]
+
+
 def test_idle_sessions_are_collected(frontend, monkeypatch):
     fe, _ = frontend
     old = fe.new_session()["id"]

@@ -13,6 +13,9 @@ Entry points run on the CUDA device unless the caller passes
 ``device="cpu"``.
 """
 
+import os
+from pathlib import Path
+
 import torch
 
 # Rendering geometry (ECEF positions ~6.4e6 m with metre-scale features)
@@ -22,6 +25,8 @@ torch.backends.cuda.matmul.allow_tf32 = False
 torch.backends.cudnn.allow_tf32 = False
 
 __version__ = "0.1.0"
+
+PACKAGE_DIR = Path(__file__).resolve().parent
 
 
 def resolve_device(device=None) -> torch.device:
@@ -36,3 +41,24 @@ def resolve_device(device=None) -> torch.device:
             )
         return torch.device("cuda")
     return torch.device(device)
+
+
+def build_dir(package_dir: Path = PACKAGE_DIR) -> Path:
+    """Where the native libraries of the package (`cuda_build.py`'s kernels,
+    `native/`'s host library) are built.
+
+    In a checkout (or a `git archive` of one), where the package's parent
+    holds ``pyproject.toml``, that is ``build/topo_renderer_tpu_torch/`` at
+    its root. Elsewhere (an installed package, whose parent is
+    site-packages) it is the per-user cache:
+    ``$XDG_CACHE_HOME/topo_renderer_tpu_torch``, or
+    ``~/.cache/topo_renderer_tpu_torch`` where that variable is unset or not
+    an absolute path.
+    """
+    root = Path(package_dir).parent
+    if (root / "pyproject.toml").is_file():
+        return root / "build" / "topo_renderer_tpu_torch"
+    cache = os.environ.get("XDG_CACHE_HOME", "")
+    if not os.path.isabs(cache):
+        cache = os.path.join(os.path.expanduser("~"), ".cache")
+    return Path(cache) / "topo_renderer_tpu_torch"

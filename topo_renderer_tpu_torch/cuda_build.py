@@ -1,9 +1,10 @@
 """Build and load the hand-written CUDA kernels in ``csrc/``.
 
 Each ``csrc/<name>.cu`` exposes a plain C interface and is compiled on first
-use by ``nvcc -shared`` into ``build/topo_renderer_tpu_torch/`` at the root of
-the checkout, under a file name keyed by a hash of the source, then loaded
-with ctypes. Nothing here runs when a module is imported: the CPU tests
+use by ``nvcc -shared`` into the package's build directory (`build_dir`:
+``build/topo_renderer_tpu_torch/`` at the root of a checkout, else the
+per-user cache), under a file name keyed by a hash of the source, then
+loaded with ctypes. Nothing here runs when a module is imported: the CPU tests
 import every module on machines without nvcc.
 
 It also holds what every wrapper needs to launch a kernel on PyTorch's
@@ -28,8 +29,9 @@ from pathlib import Path
 
 import torch
 
+from topo_renderer_tpu_torch import build_dir
+
 SRC_DIR = Path(__file__).resolve().parent / "csrc"
-BUILD_DIR = Path(__file__).resolve().parent.parent / "build" / "topo_renderer_tpu_torch"
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
     "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
@@ -52,7 +54,7 @@ def _nvcc() -> str:
 def _lib_path(name: str) -> Path:
     digest = hashlib.sha256((SRC_DIR / f"{name}.cu").read_bytes())
     digest.update(" ".join(NVCC_FLAGS).encode())
-    return BUILD_DIR / f"lib{name}-{digest.hexdigest()[:16]}.so"
+    return build_dir() / f"lib{name}-{digest.hexdigest()[:16]}.so"
 
 
 def _start_build(name: str):
@@ -61,7 +63,10 @@ def _start_build(name: str):
     out = _lib_path(name)
     if out.exists():
         return None
-    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    try:
+        out.parent.mkdir(parents=True, exist_ok=True)
+    except OSError as exc:
+        raise RuntimeError(f"cannot create the kernel build directory {out.parent}: {exc}") from exc
     tmp = out.with_suffix(f".{os.getpid()}.tmp")
     cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(SRC_DIR / f"{name}.cu")]
     proc = subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)

@@ -323,7 +323,11 @@ class WebFrontend:
                 with_labels=bool(body.get("labels", True)),
                 host_copy=False, wire=pixfmt, exact_quality=quality,
             )
-            host, ready = _start_pull(res.color)
+            try:
+                host, ready = _start_pull(res.color)
+            except Exception:
+                self.app.engine.rollback_exact_pose()
+                raise
         except Exception:
             # No frame was delivered: roll the camera back so the consumed
             # input cannot teleport the view once rendering recovers, but

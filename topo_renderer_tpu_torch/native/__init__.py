@@ -7,9 +7,10 @@ a hard dependency: it is compiled with g++ on first use, and when the
 toolchain, the build or ``TOPO_DISABLE_NATIVE`` says no, every consumer runs
 its pure-Python version (`data/tiff.py`'s decoder).
 
-The library is built into ``build/topo_renderer_tpu_torch/`` at the root of
-the checkout (beside the CUDA kernels, `cuda_build.py`), under a file name
-keyed by a hash of the source, never into the package directory.
+The library is built beside the CUDA kernels, into the package's build
+directory (`topo_renderer_tpu_torch.build_dir`: ``build/topo_renderer_tpu_torch/``
+at the root of a checkout, else the per-user cache), under a file name keyed
+by a hash of the source, never into the package directory.
 """
 
 from __future__ import annotations
@@ -21,8 +22,9 @@ import subprocess
 import threading
 from pathlib import Path
 
+from topo_renderer_tpu_torch import build_dir
+
 _SRC = Path(__file__).resolve().parent / "src" / "topo_native.cc"
-BUILD_DIR = Path(__file__).resolve().parent.parent.parent / "build" / "topo_renderer_tpu_torch"
 GXX_FLAGS = ("-O2", "-shared", "-fPIC", "-std=c++17")
 
 _lock = threading.Lock()
@@ -45,7 +47,7 @@ class TiffInfoStruct(ctypes.Structure):
 def lib_path() -> Path:
     digest = hashlib.sha256(_SRC.read_bytes())
     digest.update(" ".join(GXX_FLAGS).encode())
-    return BUILD_DIR / f"libtopo_native-{digest.hexdigest()[:16]}.so"
+    return build_dir() / f"libtopo_native-{digest.hexdigest()[:16]}.so"
 
 
 def _build(out: Path) -> bool:
@@ -53,7 +55,10 @@ def _build(out: Path) -> bool:
     processes building at once never load a half-written file)."""
     tmp = out.with_suffix(f".{os.getpid()}.tmp")
     try:
-        BUILD_DIR.mkdir(parents=True, exist_ok=True)
+        out.parent.mkdir(parents=True, exist_ok=True)
+    except OSError:  # no build directory: the Python decoder runs
+        return False
+    try:
         subprocess.run(
             ["g++", *GXX_FLAGS, "-o", str(tmp), str(_SRC), "-lz"],
             check=True, capture_output=True, timeout=180,

@@ -168,6 +168,7 @@ class RenderEngine:
         self._peaks_gen = 0  # bumped on peak-set changes; part of memo keys
         self._layout_memo: OrderedDict = OrderedDict()
         self._last_exact_pose = None  # `_resolve_exact_quality`'s motion test
+        self._pose_before_frame = None  # what `rollback_exact_pose` gives back
 
     # ---- tile management (reference: terrain_renderer.rs:173,361) --------
 
@@ -549,46 +550,60 @@ class RenderEngine:
         """
         if wire is not None and wire not in transport.MODES:
             raise ValueError(f"unknown wire mode {wire!r}")
+        self._pose_before_frame = self._last_exact_pose
         if not fast and guided:
             guided_kw = self._resolve_exact_quality(camera, exact_quality, guided_kw)
         elif exact_quality not in _EXACT_QUALITIES:
             raise ValueError(f"unknown exact_quality {exact_quality!r}")
-        fov_hint = self._fov_bucket_rad(camera)
-        if fast:
-            # A geo-sharded mosaic's sharded levels are all windowed (JAX's
-            # `_render_sharded`): its windows come band by band.
-            clip = min(self._shard_threshold, 2_000_000) if self._geo_mesh is not None else None
-            out = render_perspective_fast(
-                self.mosaic, camera, width=width, height=height, n_steps=min(n_steps, 512),
-                pixelize_n=pixelize_n, fov_hint=fov_hint, clipmap_threshold=clip,
+        # A frame that fails to build leaves the pose of the last exact frame
+        # built, so that the next frame at that pose is not taken for motion.
+        try:
+            fov_hint = self._fov_bucket_rad(camera)
+            if fast:
+                # A geo-sharded mosaic's sharded levels are all windowed (JAX's
+                # `_render_sharded`): its windows come band by band.
+                clip = min(self._shard_threshold, 2_000_000) if self._geo_mesh is not None else None
+                out = render_perspective_fast(
+                    self.mosaic, camera, width=width, height=height, n_steps=min(n_steps, 512),
+                    pixelize_n=pixelize_n, fov_hint=fov_hint, clipmap_threshold=clip,
+                )
+            else:
+                out = render_perspective(
+                    self.mosaic, camera, width=width, height=height, n_steps=n_steps, n_refine=n_refine,
+                    pixelize_n=pixelize_n, guided=guided, fov_hint=fov_hint if guided else None,
+                    guided_kw=guided_kw,
+                )
+            entries, packed = [], None
+            if with_labels and self._peaks:
+                entries, pos, valid = self._padded_peaks()
+                # LOD depth carries a distance-proportional error; the exact
+                # frame takes the reference's absolute 10 m alone.
+                packed = _frame_labels(camera, out, pos, valid, width=width, height=height,
+                                       tolerance_rel=0.05 if fast else 0.0)
+            if wire is not None:
+                names = {(loc, i): self._peaks[loc][i].name for (loc, i, _) in entries}
+                n_peaks = 0 if packed is None else int(packed.shape[1])
+                return self._result(
+                    out, transport.encode_frame(out["color"], packed, mode=wire), {}, [], host_copy=host_copy,
+                    finish=self._make_finish(entries, names, height, width, wire, n_peaks),
+                )
+            visible_labels: dict[GeoLocation, list] = {}
+            layouts: list = []
+            if packed is not None:
+                visible_labels, layouts = self._label_pass_packed(entries, packed.cpu().numpy())
+            return self._finalize_plain(
+                out, visible_labels, layouts, composite=composite, host_copy=host_copy, u8_host=u8_host
             )
-        else:
-            out = render_perspective(
-                self.mosaic, camera, width=width, height=height, n_steps=n_steps, n_refine=n_refine,
-                pixelize_n=pixelize_n, guided=guided, fov_hint=fov_hint if guided else None,
-                guided_kw=guided_kw,
-            )
-        entries, packed = [], None
-        if with_labels and self._peaks:
-            entries, pos, valid = self._padded_peaks()
-            # LOD depth carries a distance-proportional error; the exact
-            # frame takes the reference's absolute 10 m alone.
-            packed = _frame_labels(camera, out, pos, valid, width=width, height=height,
-                                   tolerance_rel=0.05 if fast else 0.0)
-        if wire is not None:
-            names = {(loc, i): self._peaks[loc][i].name for (loc, i, _) in entries}
-            n_peaks = 0 if packed is None else int(packed.shape[1])
-            return self._result(
-                out, transport.encode_frame(out["color"], packed, mode=wire), {}, [], host_copy=host_copy,
-                finish=self._make_finish(entries, names, height, width, wire, n_peaks),
-            )
-        visible_labels: dict[GeoLocation, list] = {}
-        layouts: list = []
-        if packed is not None:
-            visible_labels, layouts = self._label_pass_packed(entries, packed.cpu().numpy())
-        return self._finalize_plain(
-            out, visible_labels, layouts, composite=composite, host_copy=host_copy, u8_host=u8_host
-        )
+        except BaseException:
+            self.rollback_exact_pose()
+            raise
+
+    def rollback_exact_pose(self):
+        """Give back the exact-frame pose that the last `render` call found,
+        for a frame that failed after `render` returned (its pull to the
+        host raised), so that the next frame at that pose is not taken for
+        motion. `render` calls it itself when building the frame raises."""
+        self._last_exact_pose = self._pose_before_frame
 
     def _finalize_plain(self, out, visible_labels, layouts, *, composite, host_copy, u8_host):
         """Non-wire tail of a frame or panorama: the u8 sRGB frame, label
