@@ -138,7 +138,24 @@ Phases (any failure exits non-zero):
         bit); `render_batch_sharded` over dp x az = 2 x 2, 8 eyes at
         1024 x 256 (K1/K2 16/16), against the single-device panorama with
         the ring-wrapped contour and its label visibility;
-        `Application(geo_shard=2)` must raise RuntimeError on one card.
+        `Application(geo_shard=2)` must raise RuntimeError on one card;
+     l. the port's measurement programs (`topo_renderer_tpu_torch/bench.py`
+        and `topo_renderer_tpu_torch/scripts/`): the bench's scene,
+        `perf_probe.synthetic_mosaic_device(12001)`, built on the card (seconds, GB of tables, the build's peak); then
+        `bench.main` in this process, every config in bench.py's order
+        with the launch counts reset before each and checked after (K1/K2
+        1/1 per config 4, 2, 6 and 3 call and one more K2 per config-4
+        extraction, K1 256 and K3 1 per config-5 call of 256 eyes, K1 2 per
+        config-1 frame, prepass and rung frame), its JSON line printed on a
+        line of its own and held to bench.py's keys; one counted call of
+        each form; K1 and K2 bit for bit against their plain versions on one
+        config-4 call's inputs, and K3 on config 5's 256 eyes; then
+        `stage_probe` (the launches of each stage per call), the
+        `perf_probe` sweep at n = 2401, `trace_render` (its top operations
+        from the device trace) and `make_demos` into the build directory (2048 x
+        512 PNGs with > 200 colours, the label count); and the synthetic
+        build on the card against the CPU's at n = 801 under the tests'
+        tolerances; the phase's seconds.
      Small scenes rendered on the card and on the CPU (plain versions) must
      agree, for the fast preset (atmospheric, distance fog and no fog; its
      colours at the golden tolerance, at most 1% of pixels beyond 2/255),
@@ -1051,13 +1068,11 @@ def config2_path(engine, centre, calls=5):
     return counts, {"host_ms": host_ms, "host_syncs": len(syncs), "graph_ms": dev_ms, "phase_s": phase_s}
 
 
-def check_config2_kernels(call):
-    """Hold K1 and K2 against their plain versions bit for bit on the very
-    inputs one config-2 call gives them, caught at the names
-    `ops/panorama.py` calls them by."""
-    import torch
-
-    from topo_renderer_tpu_torch.ops import crossing, panorama, window_slice
+def caught_kernel_inputs(call, names):
+    """Run ``call()`` with the kernel wrappers ``names`` wrapped at the
+    names `ops/panorama.py` calls them by; returns each one's last inputs,
+    ``{name: (args, kw)}``."""
+    from topo_renderer_tpu_torch.ops import panorama
 
     seen = {}
 
@@ -1067,7 +1082,7 @@ def check_config2_kernels(call):
             return fn(*args, **kw)
         return wrapper
 
-    real = {name: getattr(panorama, name) for name in ("crossing_search", "window_slice_multi")}
+    real = {name: getattr(panorama, name) for name in names}
     for name, fn in real.items():
         setattr(panorama, name, catch(name, fn))
     try:
@@ -1076,21 +1091,46 @@ def check_config2_kernels(call):
         for name, fn in real.items():
             setattr(panorama, name, fn)
     if set(seen) != set(real):
-        raise AssertionError(f"config 2: caught {sorted(seen)} of K1 and K2's inputs")
-    args, kw = seen["crossing_search"]
-    got, want = crossing.crossing_search(*args, **kw), crossing.crossing_search_plain(*args, **kw)
-    for g, w, name in zip(got, want, ("kstar", "theta", "m_lo", "n0", "n1", "n2")):
-        if not torch.equal(g, w):
-            raise AssertionError(f"config 2: K1 {name} differs from the plain version in "
-                                 f"{(g != w).sum().item()} elements")
-    e, t = args[0], args[4]
-    args, kw = seen["window_slice_multi"]
-    got, want = window_slice.window_slice_multi(*args, **kw), window_slice.window_slice_multi_plain(*args, **kw)
-    for level, (g, w) in enumerate(zip(got, want)):
-        if not torch.equal(g.view(torch.int32), w.view(torch.int32)):
-            raise AssertionError(f"config 2: K2 window {level} differs from the plain version")
-    log(f"config 2's own kernel inputs: K1 at N {e.shape[0]}, W {e.shape[1]}, H {t.shape[0]} and K2 at "
-        f"{len(got)} windows of {kw['wsy']} x {kw['wsx']} words equal their plain versions bit for bit")
+        raise AssertionError(f"caught {sorted(seen)} of {sorted(real)}'s inputs")
+    return seen
+
+
+def hold_to_plain(what, seen):
+    """Each caught kernel input run through the kernel and its plain
+    version: equal bit for bit (window words as int32). Returns a line that
+    names the shapes."""
+    import torch
+
+    from topo_renderer_tpu_torch.ops import crossing, window_slice
+
+    done = []
+    if "crossing_search" in seen:
+        args, kw = seen["crossing_search"]
+        got, want = crossing.crossing_search(*args, **kw), crossing.crossing_search_plain(*args, **kw)
+        for g, w, name in zip(got, want, ("kstar", "theta", "m_lo", "n0", "n1", "n2")):
+            if not torch.equal(g, w):
+                raise AssertionError(f"{what}: K1 {name} differs from the plain version in "
+                                     f"{(g != w).sum().item()} elements")
+        done.append(f"K1 at N {args[0].shape[0]}, W {args[0].shape[1]}, H {args[4].shape[0]}")
+    for name, k, plain in (("window_slice_multi", "K2", window_slice.window_slice_multi_plain),
+                           ("window_slice_multi_batched", "K3", window_slice.window_slice_multi_batched_plain)):
+        if name not in seen:
+            continue
+        args, kw = seen[name]
+        got, want = getattr(window_slice, name)(*args, **kw), plain(*args, **kw)
+        for level, (g, w) in enumerate(zip(got, want)):
+            if not torch.equal(g.view(torch.int32), w.view(torch.int32)):
+                raise AssertionError(f"{what}: {k} window {level} differs from the plain version")
+        eyes = f"{got[0].shape[0]} eyes x " if k == "K3" else ""
+        done.append(f"{k} at {eyes}{len(got)} windows of {kw['wsy']} x {kw['wsx']} words")
+    return " and ".join(done)
+
+
+def check_config2_kernels(call):
+    """Hold K1 and K2 against their plain versions bit for bit on the very
+    inputs one config-2 call gives them."""
+    shapes = hold_to_plain("config 2", caught_kernel_inputs(call, ("crossing_search", "window_slice_multi")))
+    log(f"config 2's own kernel inputs: {shapes} equal their plain versions bit for bit")
 
 
 def batch_eyes(centre, count, alt=2500.0):
@@ -3101,6 +3141,325 @@ def multi_device_path(engine, cam, centre):
     return counts
 
 
+# ---- phase 4l: the measurement programs ------------------------------------------
+
+K1, K2, K3, K4 = "crossing_search", "window_slice_multi", "window_slice_multi_batched", "window_slice"
+BENCH_N = 12001
+PERF_PROBE_N = 2401  # perf_probe's own default
+SYNTH_CHECK_N = 801  # bench's smoke size: the card's build against the CPU's
+HEIGHT_ATOL = 0.05  # metres (tests/test_torch_bench.py)
+CODE_MAX, CODE_SHARE = 4, 0.005  # packed normal codes (tests/test_torch_bench.py)
+
+
+def launches(k1=0, k2=0, k3=0, k4=0):
+    return {K1: k1, K2: k2, K3: k3, K4: k4}
+
+
+def bench_calls():
+    """Calls of each loop of `bench.main` (each loop adds one warm-up call):
+    the sustained loops, config 1's loops, config 5's batches and the wire
+    loops."""
+    from topo_renderer_tpu_torch import bench
+
+    reps, chunks = bench.REPS["wire"]
+    return {"sustained": 1 + max(1, bench.REPS["sustained"] // 4) * 4,
+            "exact": 1 + max(1, bench.REPS["exact"] // 4) * 4,
+            "batch": 1 + bench.REPS["batch"], "wire": 1 + reps * chunks}
+
+
+def bench_launch_totals(eyes):
+    """The launches each bench config must make in all: its calls per loop
+    times each call's launches (config 4: K1 and K2 once per call, K2 once
+    per extraction; config 5: K3 once per 256 eyes, K1 once per eye; config
+    1: K1 twice per frame and per prepass; configs 6 and 3: K1 and K2 once
+    per frame)."""
+    from topo_renderer_tpu_torch.ops.panorama import EYES_PER_LAUNCH
+
+    c = bench_calls()
+    s, e, w = c["sustained"], c["exact"], c["wire"]
+    return {4: launches(k1=s, k2=2 * s), 2: launches(k1=s, k2=s),
+            5: launches(k1=eyes * c["batch"], k3=-(-eyes // EYES_PER_LAUNCH) * c["batch"]),
+            1: launches(k1=2 * 3 * e), 6: launches(k1=2 * w + s, k2=2 * w + s), 3: launches(k1=w, k2=w)}
+
+
+BENCH_KEYS = {"metric", "value", "unit", "vs_baseline", "configs"}
+BENCH_STAGES = {4: {"extract_ms", "render_ms"}, 2: None, 5: None, 3: {"label_overhead_ms"},
+                1: {"prepass_ms", "march_ms", "gather_rounds", "ms_per_round", "interactive_rung_ms",
+                    "rung_rounds", "rung_ms_per_round"},
+                6: {"device_ms", "transport_ms", "wire_bytes", "rgb888_ms", "rgb888_bytes"}}
+
+
+def check_bench_line(configs):
+    """bench.py's keys, all six configs, finite positive values."""
+    import math
+
+    for c in configs:
+        stages = BENCH_STAGES[c["config"]]
+        values = [c["value"], *c["stats"].values(), *(c.get("stages") or {}).values()]
+        if (stages is not None and set(c["stages"]) != stages) or not all(
+                isinstance(v, (int, float)) and math.isfinite(v) for v in values) or c["value"] <= 0:
+            raise AssertionError(f"bench config {c['config']}: bad record {c}")
+    if sorted(c["config"] for c in configs) != [1, 2, 3, 4, 5, 6]:
+        raise AssertionError(f"bench: configs {[c['config'] for c in configs]}")
+
+
+def check_bench_output(name, out):
+    """What one bench call gives: a frame (or the wire vector, decoded)
+    with terrain and sky, finite, > 200 colours; the labelled frame's
+    visible labels. Returns a short description."""
+    import torch
+
+    from topo_renderer_tpu_torch.ops.shading import to_srgb8_image
+    from topo_renderer_tpu_torch.render import transport
+
+    if isinstance(out, tuple):  # a window extraction
+        return f"{sum(w[1] is not None for w in out)} windowed levels"
+    if isinstance(out, torch.Tensor):  # a wire vector
+        peaks = 512 if name.endswith("config3") else 0
+        img, lab = transport.decode_frame(out.cpu().numpy(), 450, 800, peaks, mode="yuv420")
+        hit, n_labels = None, 0 if lab is None else int(lab[0].sum())
+        if peaks and n_labels < 1:
+            raise AssertionError(f"{name}: no visible label")
+    elif "color" in out:
+        if not bool(torch.isfinite(out["color"]).all()):
+            raise AssertionError(f"{name}: colour not finite")
+        img, hit, n_labels = to_srgb8_image(out["color"]).cpu().numpy(), float(out["hit"].float().mean()), 0
+    else:  # the prepass's brackets
+        hit = float(out["hit"].float().mean())
+        if not 0.0 < hit < 1.0:
+            raise AssertionError(f"{name}: prepass hit share {hit:.3f}")
+        return f"hit {hit:.3f}"
+    colors = len(np.unique(img.reshape(-1, 3), axis=0))
+    if colors <= 200 or (hit is not None and not 0.0 < hit < 1.0):
+        raise AssertionError(f"{name}: {colors} colours, hit {hit}")
+    return f"{img.shape[1]}x{img.shape[0]}" + ("" if hit is None else f" hit {hit:.3f}") + f" {colors} colours" + (
+        f" {n_labels} labels" if n_labels else "")
+
+
+def bench_single_calls(fixtures):
+    """One call of each form the bench times, with the launch counts reset
+    before it: each call's own launches, and what it gives
+    (`check_bench_output`). Returns the launches by path name."""
+    import math
+
+    import torch
+
+    from topo_renderer_tpu_torch import bench
+    from topo_renderer_tpu_torch.models.camera import Camera
+    from topo_renderer_tpu_torch.ops.panorama import PanoramaSpec, extract_clipmap_windows, panorama_crossing_prepass
+    from topo_renderer_tpu_torch.ops.raycast import guided_march_defaults, guided_prepass_spec
+    from topo_renderer_tpu_torch.render.engine import RenderEngine
+
+    mosaic, eye, sun, labels, _ = fixtures
+    cam = Camera(eye=eye, pitch=-0.05, yaw=0.8)
+    fov = math.radians(45.0)
+    spec4, spec2 = PanoramaSpec.fast(4096, 1024, n_steps=512), PanoramaSpec.fast(2048, 512, n_steps=512)
+    gmd = guided_march_defaults()
+    spec_pre, _, _ = guided_prepass_spec(height=450, fov_hint=fov, aspect=800 / 450, n_steps=1024,
+                                         supersample=gmd["supersample"],
+                                         elev_supersample=gmd.get("elev_supersample", 1.0))
+    forms = {
+        "bench_config4": (lambda: bench.panorama_call(mosaic, eye, spec4, sun, "atmosphere"), launches(1, 1)),
+        "bench_config4_extract": (lambda: extract_clipmap_windows(mosaic, eye, spec4), launches(k2=1)),
+        "bench_config2": (lambda: bench.panorama_call(mosaic, eye, spec2, sun, "distance"), launches(1, 1)),
+        "bench_config1": (lambda: bench.exact_frame(mosaic, cam, 800, 450, fov), launches(k1=2)),
+        "bench_config1_prepass": (lambda: panorama_crossing_prepass(mosaic, eye, spec_pre,
+                                                                    bound_stride=gmd["bound_stride"]), launches(k1=2)),
+        "bench_config1_rung": (lambda: bench.exact_frame(mosaic, cam, 800, 450, fov,
+                                                         guided_kw=RenderEngine._EXACT_RUNG_INTERACTIVE),
+                               launches(k1=2)),
+        "bench_config6": (lambda: bench.wire_frame(mosaic, cam, 800, 450, fov), launches(1, 1)),
+        "bench_config3": (lambda: bench.wire_frame(mosaic, cam, 800, 450, fov, labels=labels), launches(1, 1)),
+    }
+    counts, seen = {}, []
+    for name, (fn, want) in forms.items():
+        reset_counts()
+        out = fn()
+        torch.cuda.synchronize()
+        counts[name] = read_counts()
+        expect_counts(name, counts[name], want)
+        seen.append(f"{name[6:]} {check_bench_output(name, out)}")
+        del out
+    log("bench (phase 4l): one call of each form: " + "; ".join(seen))
+    return counts
+
+
+def compare_synthetic(card, cpu):
+    """The card's synthetic build against the CPU's under the tolerances
+    the tests hold the port's build to against the JAX script's: (max
+    height difference, share of texels whose packed normal differs, max
+    code difference)."""
+    import torch
+
+    if card.shape != cpu.shape or card.mip_shapes != cpu.mip_shapes or (
+            [w is None for w in card.win_attr_2d] != [w is None for w in cpu.win_attr_2d]):
+        raise AssertionError("synthetic build: card and CPU tables differ in shape")
+    heights = [(card.heights_flat, cpu.heights_flat), (card.cell_heights_flat, cpu.cell_heights_flat)]
+    heights += list(zip(card.mip_heights_flat, cpu.mip_heights_flat)) + list(zip(card.mip_hmax_flat, cpu.mip_hmax_flat))
+    h_diff = max(float((a.cpu() - b).abs().max()) for a, b in heights)
+    attrs = [(card.attr_packed_flat, cpu.attr_packed_flat)] + list(zip(card.mip_attr_flat, cpu.mip_attr_flat))
+    differ, texels, code_max = 0, 0, 0
+    for a, b in attrs:
+        wa, wb = a[:, 1].cpu().contiguous().view(torch.int32), b[:, 1].contiguous().view(torch.int32)
+        d = torch.stack([((wa >> s) & 0x3FF) - ((wb >> s) & 0x3FF) for s in (0, 10, 20)]).abs()
+        differ += int((d > 0).any(dim=0).sum())
+        texels += d.shape[1]
+        code_max = max(code_max, int(d.max()))
+        h_diff = max(h_diff, float((a[:, 0].cpu() - b[:, 0]).abs().max()))
+    share = differ / texels
+    if h_diff > HEIGHT_ATOL or code_max > CODE_MAX or share > CODE_SHARE:
+        raise AssertionError(f"synthetic build: card vs CPU heights {h_diff:.3g} m, normals {share:.4%} of "
+                             f"texels up to {code_max} codes")
+    return h_diff, share, code_max
+
+
+def check_demo(path, what):
+    from PIL import Image
+
+    img = np.asarray(Image.open(path))
+    colors = len(np.unique(img.reshape(-1, 3), axis=0))
+    if img.shape != (512, 2048, 3) or colors <= 200:
+        raise AssertionError(f"make_demos {what}: {img.shape}, {colors} colours")
+    return colors
+
+
+def bench_path():
+    """Phase 4l: the port's measurement programs on the card. Returns the
+    launch counts per call by path name."""
+    import torch
+
+    from topo_renderer_tpu_torch import bench, build_dir
+    from topo_renderer_tpu_torch.models.scene import ARRAY_FIELDS
+    from topo_renderer_tpu_torch.ops.panorama import PanoramaSpec, _window_batch
+    from topo_renderer_tpu_torch.scripts import make_demos, perf_probe, stage_probe, trace_render
+
+    t_phase = time.perf_counter()
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    fixtures = bench.bench_fixtures("cuda")
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t0
+    mosaic = fixtures[0]
+    tables = sum(tensor_bytes(getattr(mosaic, name)) for name in ARRAY_FIELDS)
+    if mosaic.shape != (BENCH_N, BENCH_N) or mosaic.cell_width != 4:
+        raise AssertionError(f"bench scene: {mosaic.shape}, cell width {mosaic.cell_width}")
+    log(f"bench scene (phase 4l): synthetic_mosaic_device({BENCH_N}) built on the card in {build_s:.2f} s; "
+        f"{tables / 1e9:.2f} GB of tables; the build's peak {(torch.cuda.max_memory_allocated() - base) / 1e9:.2f} GB "
+        f"above the phase's start; 512 peaks and {fixtures[4].shape[0]} viewpoints")
+
+    totals, current = {}, [None]
+
+    def mark(config):
+        if current[0] is not None:
+            totals[current[0]] = read_counts()
+        reset_counts()
+        current[0] = config
+
+    configs = []
+    t0 = time.perf_counter()
+    bench.main(configs, fixtures=fixtures, mark=mark)
+    bench_s = time.perf_counter() - t0
+    bench._emit(configs)
+    check_bench_line(configs)
+    want = bench_launch_totals(fixtures[4].shape[0])
+    for config in (4, 2, 5, 1, 6, 3):
+        expect_counts(f"bench config {config}", totals[config], want[config])
+    calls = bench_calls()
+    log(f"bench (phase 4l): the six configs in {bench_s:.1f} s; launches in all (K1/K2/K3/K4) by config: "
+        + "; ".join(f"{c}: {'/'.join(str(totals[c][k]) for k in (K1, K2, K3, K4))}" for c in (4, 2, 5, 1, 6, 3))
+        + f" (calls per loop, warm-up included: {calls})")
+
+    counts = bench_single_calls(fixtures)
+    counts["bench_config5"] = {k: v // calls["batch"] for k, v in totals[5].items()}
+    log("bench (phase 4l): launches per call (K1/K2/K3/K4): "
+        + "; ".join(f"{name[6:]} {'/'.join(str(c[k]) for k in (K1, K2, K3, K4))}" for name, c in counts.items()))
+
+    spec4 = PanoramaSpec.fast(4096, 1024, n_steps=512)
+    shapes = hold_to_plain("bench config 4", caught_kernel_inputs(
+        lambda: bench.panorama_call(mosaic, fixtures[1], spec4, fixtures[2], "atmosphere"),
+        (K1, K2)))
+    log(f"bench config 4's own kernel inputs: {shapes} equal their plain versions bit for bit")
+    spec5 = PanoramaSpec.fast(1024, 256, n_steps=512)
+    shapes = hold_to_plain("bench config 5", caught_kernel_inputs(
+        lambda: _window_batch(mosaic, fixtures[4], spec5), (K3,)))
+    log(f"bench config 5's own kernel inputs: {shapes} equal their plain version bit for bit")
+    del fixtures, mosaic
+    torch.cuda.empty_cache()
+
+    # stage_probe: each stage's launches per call, its bench loop counted.
+    per_stage, real_bench = {}, stage_probe.bench
+
+    def counted_bench(label, fn, *args, reps=20):
+        reset_counts()
+        ms = real_bench(label, fn, *args, reps=reps)
+        per_stage[label] = {k: v / (reps + 1) for k, v in read_counts().items()}
+        return ms
+
+    t0 = time.perf_counter()
+    stage_probe.bench = counted_bench
+    try:
+        stage_ms = stage_probe.main([])
+    finally:
+        stage_probe.bench = real_bench
+    stage_want = [launches(k2=1), launches(), launches(k1=1), launches(1, 1)]
+    for (label, got), want_stage in zip(per_stage.items(), stage_want):
+        expect_counts(f"stage_probe {label.strip()}", got, want_stage)
+    counts.update({f"stage_probe_{i}": {k: int(v) for k, v in c.items()} for i, c in enumerate(per_stage.values(), 1)})
+    log(f"stage_probe (phase 4l, n {BENCH_N}): {time.perf_counter() - t0:.1f} s; stages "
+        f"{', '.join(f'{k} {v:.2f} ms' for k, v in stage_ms.items())}; launches per call (K1/K2/K3/K4) "
+        + ", ".join("/".join(str(int(c[k])) for k in (K1, K2, K3, K4)) for c in per_stage.values()))
+    torch.cuda.empty_cache()
+
+    t0 = time.perf_counter()
+    reset_counts()
+    sweep = perf_probe.main(["--n", str(PERF_PROBE_N)])
+    probe_counts = read_counts()
+    calls_per_spec = 6  # bench(): a warm-up and 5 timed calls
+    counts["perf_probe_sweep"] = {k: v // (calls_per_spec * len(sweep)) for k, v in probe_counts.items()}
+    log(f"perf_probe (phase 4l, n {PERF_PROBE_N}): the sweep in {time.perf_counter() - t0:.1f} s; best "
+        + ", ".join(f"{s.width}x{s.height} N={s.n_steps} {best * 1e3:.2f} ms" for s, best in sweep)
+        + f"; launches in all (K1/K2/K3/K4) {'/'.join(str(probe_counts[k]) for k in (K1, K2, K3, K4))} over "
+        f"{calls_per_spec * len(sweep)} calls (the non-LOD spec crosses by reductions, not K1)")
+    torch.cuda.empty_cache()
+
+    t0 = time.perf_counter()
+    reset_counts()
+    top = trace_render.main(["--trace-dir", str(build_dir() / "trace_render")])
+    trace_counts = read_counts()
+    counts["trace_render"] = {k: v // 3 for k, v in trace_counts.items()}
+    if not top:
+        raise AssertionError("trace_render: the trace holds no device operation")
+    log(f"trace_render (phase 4l, n 1201): {time.perf_counter() - t0:.1f} s; {len(top)} top operations, the first "
+        f"{top[0][1][:60]!r} {top[0][0]:.2f} ms; launches in all (K1/K2/K3/K4) "
+        f"{'/'.join(str(trace_counts[k]) for k in (K1, K2, K3, K4))} over 3 renders")
+    torch.cuda.empty_cache()
+
+    t0 = time.perf_counter()
+    reset_counts()
+    demos = make_demos.main([])
+    counts["make_demos"] = {k: v // 2 for k, v in read_counts().items()}
+    expect_counts("make_demos, per panorama", counts["make_demos"], launches(1, 1))
+    colors = {key: check_demo(demos[key], key) for key in ("panorama", "fog")}
+    if demos["labels"] < 1:
+        raise AssertionError("make_demos: no label laid out")
+    log(f"make_demos (phase 4l): {time.perf_counter() - t0:.1f} s; {demos['panorama'].name} ({colors['panorama']} "
+        f"colours, {demos['labels']} labels) and {demos['fog'].name} ({colors['fog']} colours), 2048x512, in "
+        f"{demos['panorama'].parent}")
+
+    t0 = time.perf_counter()
+    card = perf_probe.synthetic_mosaic_device(n=SYNTH_CHECK_N)
+    cpu = perf_probe.synthetic_mosaic_device(n=SYNTH_CHECK_N, device="cpu")
+    h_diff, share, code_max = compare_synthetic(card, cpu)
+    log(f"synthetic build (phase 4l, n {SYNTH_CHECK_N}): card vs CPU heights within {h_diff:.3g} m, packed normals "
+        f"differ on {share:.4%} of texels by at most {code_max} codes ({time.perf_counter() - t0:.1f} s)")
+    del card, cpu
+    torch.cuda.empty_cache()
+    log(f"measurement programs (phase 4l): {time.perf_counter() - t_phase:.1f} s in all")
+    return counts
+
+
 def small_scene_agreement():
     """One small scene on the card and on the CPU (plain versions): the
     same frame up to float rounding. Dither seeds hash world positions, so
@@ -3266,6 +3625,7 @@ def main(argv) -> int:
     per_call.update(multi_device_path(engine, cam, centre))
     del engine
     torch.cuda.empty_cache()
+    per_call.update(bench_path())
     per_call.update(streaming_path())
     per_call.update(host_runtime_path())
     per_call.update(frontends_path())

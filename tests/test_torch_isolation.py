@@ -2,8 +2,12 @@
 
 `topo_renderer_tpu_torch` (and `chip_smoke.py`, which drives it on the
 card) must import neither `jax` nor anything of `topo_renderer_tpu`: the
-card's machine runs the port without JAX. Checked twice: in a fresh
-interpreter through `sys.modules`, and statically over every source file.
+card's machine runs the port without JAX. Nor may it import the JAX
+package's measurement programs (the repository's ``bench.py`` and
+``scripts/``) or put ``scripts`` on ``sys.path``: the port keeps its own
+copies (`topo_renderer_tpu_torch/bench.py`, `topo_renderer_tpu_torch/scripts/`).
+Checked twice: in a fresh interpreter through `sys.modules`, and statically
+over every source file.
 """
 
 import ast
@@ -26,6 +30,9 @@ from topo_renderer_tpu_torch.render.engine import RenderEngine
 ROOT = pathlib.Path(__file__).resolve().parent.parent
 PKG = ROOT / "topo_renderer_tpu_torch"
 FORBIDDEN = {"jax", "jaxlib", "topo_renderer_tpu"}
+# The JAX package's measurement programs, as top-level modules of the
+# repository's root or of its ``scripts/`` directory.
+SCRIPTS = {"bench", "scripts", "perf_probe", "stage_probe", "trace_render", "make_demos"}
 
 
 def _sources():
@@ -55,10 +62,12 @@ def test_no_forbidden_module_after_import():
         "from topo_renderer_tpu_torch.parallel.sharded import render_batch_sharded, jit_sharded_step\n"
         "from topo_renderer_tpu_torch.parallel.sharded_mosaic import shard_mosaic, render_batch_scan_sharded\n"
         "from topo_renderer_tpu_torch.parallel.sharded_update import apply_slot_update_sharded\n"
+        "from topo_renderer_tpu_torch import bench\n"
+        "from topo_renderer_tpu_torch.scripts import make_demos, perf_probe, stage_probe, trace_render\n"
         "import numpy as np\n"
         "blob = write_geotiff(np.ones((3, 4), np.float32), (1.0, 1.0, 0.0), (0.0,) * 6)\n"
         "assert read_geotiff(blob)[0].shape == (3, 4)\n"
-        f"bad = sorted(m for m in sys.modules if m.split('.')[0] in {sorted(FORBIDDEN)!r})\n"
+        f"bad = sorted(m for m in sys.modules if m.split('.')[0] in {sorted(FORBIDDEN | SCRIPTS)!r})\n"
         "print(len(sys.modules), bad)\n"
     )
     out = subprocess.run(
@@ -79,6 +88,26 @@ def test_no_forbidden_import_statement(path):
             continue
         for name in names:
             assert name.split(".")[0] not in FORBIDDEN, f"{path}:{node.lineno} imports {name}"
+
+
+@pytest.mark.parametrize("path", _sources(), ids=lambda p: str(p.relative_to(ROOT)))
+def test_no_import_of_the_repository_scripts(path):
+    """No absolute import of the JAX package's measurement programs, and no
+    ``sys.path`` change that names ``scripts``."""
+    tree = ast.parse(path.read_text(), filename=str(path))
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            names = [a.name for a in node.names]
+        elif isinstance(node, ast.ImportFrom) and node.level == 0:
+            names = [node.module]
+        else:
+            names = []
+        for name in names:
+            assert name.split(".")[0] not in SCRIPTS, f"{path}:{node.lineno} imports {name}"
+        if isinstance(node, ast.Call) and ast.unparse(node.func).startswith("sys.path"):
+            assert "scripts" not in ast.unparse(node), f"{path}:{node.lineno} puts scripts on sys.path"
+        if isinstance(node, (ast.Assign, ast.AugAssign)) and "sys.path" in ast.unparse(node):
+            assert "scripts" not in ast.unparse(node), f"{path}:{node.lineno} puts scripts on sys.path"
 
 
 def test_engine_needs_cuda_by_default(monkeypatch):
