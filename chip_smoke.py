@@ -32,6 +32,9 @@ Phases (any failure exits non-zero):
      origins `_window_batch` gives it for config 5's 256 eyes, on the
      scene's ``win_attr_2d`` tables, bit for bit against its plain version
      and timed as in phase 3, then phase 5; then:
+     a0. the mosaic's accessors on the card: `heights`, `normals_packed`
+        and `normals` equal the attribute table's words and their CPU
+        decode bit for bit (`mosaic_accessors`), no kernel launched;
      a. three 4096 x 1024 atmospheric LOD panoramas of 512 steps with
         labels; every frame must launch K1 and K2 once, hit terrain and
         sky, and carry labels;
@@ -125,7 +128,9 @@ Phases (any failure exits non-zero):
         runs on one card (transfers between cards are not exercised):
         `RenderEngine(geo_mesh=Mesh(["cuda:0"] * 4, ("geo",)))` with the
         100 tiles and their peaks (each band's resident bytes, the
-        replicated bytes, the peak memory); its config 6 fast frame (K1 1,
+        replicated bytes, the peak memory; its `heights`, `normals_packed`
+        and `normals` equal the unsharded mosaic's, padded rows poisoned
+        or zero); its config 6 fast frame (K1 1,
         K2 4: one per band), config 1 exact frame at both budgets (K1 2),
         config 4 panorama (K1 1, K2 4) and config 5 batch of 256 eyes (K1
         256, K3 4; each K3 launch also held bit for bit against its plain
@@ -967,6 +972,53 @@ def build_scene():
     if mosaic.shape != (12001, 12001):
         raise AssertionError(f"mosaic shape {mosaic.shape} != (12001, 12001)")
     return engine, (c_lat, c_lon)
+
+
+def mosaic_accessors(engine):
+    """Phase 4a0: the 12001^2 mosaic's accessors on the card. `heights`,
+    `normals_packed` (uint32) and `normals` (f32 [H, W, 3]) must be card
+    tensors of the mosaic's shape; the packed words equal the attribute
+    table's bits and the decoded normals the CPU decode (`unpack_normals`)
+    of those words pulled to the host, bit for bit; `valid`, `cell_tile` and
+    `tile_rot` are the build's host arrays. No kernel launches."""
+    import torch
+
+    from topo_renderer_tpu_torch.models.scene import unpack_normals
+
+    m = engine.mosaic
+    reset_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    heights, packed, normals = m.heights, m.normals_packed, m.normals
+    torch.cuda.synchronize()
+    card_ms = 1e3 * (time.perf_counter() - t0)
+    expect_counts("mosaic accessors", read_counts(), {name: 0 for name in _counted()})
+    if not (heights.is_cuda and packed.is_cuda and normals.is_cuda) or packed.dtype != torch.uint32:
+        raise AssertionError(f"mosaic accessors: {heights.device}, {packed.device} {packed.dtype}, {normals.device}")
+    if heights.shape != m.shape or packed.shape != m.shape or normals.shape != (*m.shape, 3):
+        raise AssertionError(f"mosaic accessors: shapes {heights.shape}, {packed.shape}, {normals.shape}")
+    t0 = time.perf_counter()
+    words = m.attr_packed_flat[:, 1].cpu().view(torch.int32).reshape(m.shape)
+    want = torch.stack(unpack_normals(words), dim=-1)
+    cpu_ms = 1e3 * (time.perf_counter() - t0)
+    if not torch.equal(packed.cpu().view(torch.int32), words):
+        raise AssertionError("mosaic accessors: normals_packed differs from the attribute table's words")
+    if not torch.equal(normals.cpu().view(torch.int32), want.view(torch.int32)):
+        differ = (normals.cpu().view(torch.int32) != want.view(torch.int32)).any(dim=-1).float().mean().item()
+        raise AssertionError(f"mosaic accessors: normals differ from the CPU decode on {100 * differ:.4f}% of texels")
+    if not torch.equal(heights.view(-1), m.heights_flat):
+        raise AssertionError("mosaic accessors: heights differ from heights_flat")
+    valid, cell_tile, tile_rot = (np.asarray(getattr(m, name)) for name in ("valid", "cell_tile", "tile_rot"))
+    if valid.shape != m.shape or cell_tile.shape != m.shape or tile_rot.shape != (len(engine._tiles), 3, 3):
+        raise AssertionError(f"mosaic accessors: host arrays {valid.shape}, {cell_tile.shape}, {tile_rot.shape}")
+    unit = torch.linalg.vector_norm(normals[1:-1, 1:-1].double(), dim=-1)
+    log(f"mosaic accessors (phase 4a0): heights, normals_packed (uint32) and normals {tuple(normals.shape)} on the "
+        f"card in {card_ms:.0f} ms host clock, no kernel launched; the packed words equal the attribute table's and "
+        f"the normals the CPU decode of those words pulled to the host ({cpu_ms:.0f} ms), bit for bit, on "
+        f"{packed.numel()} texels; |n| of the inner texels {unit.min().item():.5f}-{unit.max().item():.5f}; valid "
+        f"{valid.mean():.4f} of texels, cell_tile {cell_tile.shape}, tile_rot {tile_rot.shape}")
+    del heights, packed, normals, words, want, unit
+    torch.cuda.empty_cache()
 
 
 def panorama_path(engine, centre, frames=3):
@@ -2922,6 +2974,8 @@ def geo_scene_paths(engine, cam, centre, batch=256):
         + f" GB, replicated {replicated / 1e9:.3f} GB; peak {(torch.cuda.max_memory_allocated() - base) / 1e9:.2f} GB "
         f"above the phase's start, {(torch.cuda.memory_allocated() - base) / 1e9:.2f} GB after")
 
+    geo_accessors(m, engine.mosaic)
+
     counts = {}
     fast_kw = dict(n_steps=512, fast=True, with_labels=False, wire="yuv420", host_copy=False)
     frames = {
@@ -2997,6 +3051,39 @@ def geo_scene_paths(engine, cam, centre, batch=256):
     del geo, m
     torch.cuda.empty_cache()
     return counts
+
+
+def geo_accessors(geo, mosaic):
+    """Phase 4k: the geo mesh's `heights`, `normals_packed` and `normals`
+    join its bands in row order on the lead device; their rows equal the
+    unsharded mosaic's bit for bit, and the padded rows read poisoned
+    heights and zero words, as JAX's sharded arrays do. `valid`,
+    `cell_tile` and `tile_rot` equal the unsharded mosaic's."""
+    import torch
+
+    from topo_renderer_tpu_torch.models.scene import POISON_HEIGHT
+
+    h = mosaic.shape[0]
+    t0 = time.perf_counter()
+    for name in ("heights", "normals_packed", "normals"):
+        got, want = getattr(geo, name), getattr(mosaic, name)
+        if got.device != geo.device or got.shape[0] != geo.shape[0] or got.shape[1:] != want.shape[1:]:
+            raise AssertionError(f"geo {name}: {tuple(got.shape)} on {got.device}, the mosaic's {tuple(want.shape)}")
+        if not torch.equal(got[:h].view(torch.int32), want.view(torch.int32)):
+            raise AssertionError(f"geo {name}: the bands' rows differ from the unsharded mosaic's")
+        if name == "heights" and not (got[h:] == POISON_HEIGHT).all():
+            raise AssertionError("geo heights: the padded rows are not poisoned")
+        if name == "normals_packed" and got[h:].view(torch.int32).any():
+            raise AssertionError("geo normals_packed: the padded rows are not zero words")
+        del got, want
+    for name in ("valid", "cell_tile", "tile_rot"):
+        if not np.array_equal(np.asarray(getattr(geo, name)), np.asarray(getattr(mosaic, name))):
+            raise AssertionError(f"geo {name}: differs from the unsharded mosaic's")
+    torch.cuda.synchronize()
+    log(f"geo accessors (phase 4k): heights, normals_packed and normals of the {len(geo.heights_flat)}-band mesh "
+        f"({geo.shape[0]} rows, {geo.shape[0] - h} padded) equal the unsharded mosaic's bit for bit, the padded rows "
+        f"poisoned / zero words; valid, cell_tile, tile_rot equal; {1e3 * (time.perf_counter() - t0):.0f} ms")
+    torch.cuda.empty_cache()
 
 
 def check_band_windows(mosaic, eyes, spec):
@@ -3703,6 +3790,7 @@ def main(argv) -> int:
         print(json.dumps({"kernels": [{key: k[key] for key in order if key in k} for k in kernels]}), flush=True)
         print(card, flush=True)
         return 0
+    mosaic_accessors(engine)
     per_call = {}
     per_call["panorama"], frame_ms = panorama_path(engine, centre)
     per_call["config2"], config2 = config2_path(engine, centre)

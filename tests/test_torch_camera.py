@@ -9,6 +9,7 @@ an absolute tolerance of that size beside the relative one.
 import dataclasses
 import math
 
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -98,3 +99,32 @@ def test_view_proj_product_order():
     a, b = (rng.normal(size=(4, 4)).astype(np.float32) * s for s in (1.0, 3e6))
     got = mathx.mat4_mul(torch.from_numpy(a), torch.from_numpy(b))
     np.testing.assert_array_equal(got.numpy(), np.asarray(jnp.asarray(a) @ jnp.asarray(b)))
+
+
+NORM_N = 64
+
+
+@pytest.mark.parametrize("layout", ["3xN", "Nx3"])
+@pytest.mark.parametrize("eps", [0.0, 1e-30])
+@pytest.mark.parametrize("axis", [-1, 0])
+def test_normalize_along_either_axis(axis, eps, layout):
+    """`normalize(v, axis, eps)` against ``jax.jit`` of JAX's on the same
+    float32 ``[3, N]`` or ``[N, 3]`` input (one zero vector among them, so
+    that ``eps`` acts). Reduced over an axis of 3, bit for bit: XLA-CPU's
+    chain of fused multiply-adds and its correctly rounded square root.
+    Reduced over the axis of N = 64, XLA vectorises the sum in an order of
+    its own that the port does not copy (measured at most 5 ulps on 300
+    seeds); held within 8 ulps."""
+    shape = (3, NORM_N) if layout == "3xN" else (NORM_N, 3)
+    v = np.random.default_rng(7).standard_normal(shape).astype(np.float32)
+    np.moveaxis(v, axis, -1)[1] = 0.0  # a zero vector along the reduced axis
+    got = mathx.normalize(torch.from_numpy(v), axis=axis, eps=eps).numpy()
+    want = np.asarray(jax.jit(jmathx.normalize, static_argnames=("axis", "eps"))(jnp.asarray(v), axis=axis, eps=eps))
+    assert got.shape == want.shape == v.shape
+    np.testing.assert_array_equal(np.isnan(got), np.isnan(want))
+    ok = ~np.isnan(want)
+    ulps = np.abs(got[ok].view(np.int32).astype(np.int64) - want[ok].view(np.int32))
+    if v.shape[axis] == 3:
+        assert ulps.max() == 0, (int(ulps.max()), float((ulps > 0).mean()))
+    else:
+        assert ulps.max() <= 8, int(ulps.max())

@@ -7,6 +7,11 @@ of every window table must be equal. Packed normals may differ by one code
 per 10-bit channel: the normals pass through cos() of each row's latitude
 and a tile rotation, whose last bits differ between XLA and PyTorch, before
 rounding to 1023 levels.
+
+The mosaic's accessors (`normals_packed`, `normals`, `valid`, `cell_tile`,
+`tile_rot`) read as JAX's do: the packed words and their decode bit for
+bit on the JAX build carried across (`jax_mosaic_to_port`), the host
+bookkeeping equal between the two builds.
 """
 
 import numpy as np
@@ -14,6 +19,7 @@ import pytest
 import torch
 
 from tests.helpers import synthetic_heights
+from tests.test_torch_window_slice import jax_mosaic_to_port
 from topo_renderer_tpu.data.coordinate_transform import CoordinateTransform as JaxTransform
 from topo_renderer_tpu.geo import GeoLocation as JaxLocation
 from topo_renderer_tpu.models.scene import TerrainTile as JaxTile, build_mosaic as jax_build_mosaic
@@ -115,3 +121,23 @@ def test_unpack_normals_reads_the_bits(mosaics):
     norm = torch.sqrt(nx * nx + ny * ny + nz * nz).numpy().reshape(pm.shape)
     # The outer ring keeps the zero-encoded (-1, -1, -1) normal, rotated.
     assert np.all(np.abs(norm[1:-1, 1:-1] - 1.0) < 0.01)
+
+
+def test_normals_packed_and_decoded_equal_jax(mosaics):
+    jm, _ = mosaics
+    pm = jax_mosaic_to_port(jm)
+    packed, want = pm.normals_packed, np.asarray(jm.normals_packed)
+    assert packed.dtype == torch.uint32 and want.dtype == np.uint32
+    np.testing.assert_array_equal(packed.numpy(), want)
+    normals, want = pm.normals.numpy(), np.asarray(jm.normals)
+    assert normals.shape == want.shape == (*jm.shape, 3)
+    np.testing.assert_array_equal(normals.view(np.int32), want.view(np.int32))
+    np.testing.assert_array_equal(pm.heights.numpy(), np.asarray(jm.heights))
+
+
+def test_host_accessors_equal_jax(mosaics):
+    jm, pm = mosaics
+    for name in ("valid", "cell_tile", "tile_rot"):
+        got, want = np.asarray(getattr(pm, name)), np.asarray(getattr(jm, name))
+        assert got.dtype == want.dtype and got.shape == want.shape, name
+        np.testing.assert_array_equal(got, want, err_msg=name)

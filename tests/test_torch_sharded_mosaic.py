@@ -52,7 +52,10 @@ from topo_renderer_tpu.ops.panorama import PanoramaSpec as JaxSpec
 from topo_renderer_tpu.ops.panorama import render_panorama as jax_render_panorama
 from topo_renderer_tpu.ops.shading import to_srgb8_image as jax_srgb8
 from topo_renderer_tpu.parallel import sharded_mosaic as jsm
+from topo_renderer_tpu_torch.data.coordinate_transform import CoordinateTransform
+from topo_renderer_tpu_torch.geo import GeoLocation
 from topo_renderer_tpu_torch.models import mosaic_update
+from topo_renderer_tpu_torch.models.scene import POISON_HEIGHT, TerrainTile, build_mosaic
 from topo_renderer_tpu_torch.ops import crossing, window_slice
 from topo_renderer_tpu_torch.ops.panorama import (
     PanoramaSpec,
@@ -165,6 +168,35 @@ def test_shard_mosaic_equals_jax_shards(scene, threshold):
     assert not pointers & {t.data_ptr() for t in ps.mip_hmax_flat}
     no_cell = shard_mosaic(pm, _port_mesh(), size_threshold=threshold)
     assert not no_cell.has_cell_table and not no_cell.cell_sharded and tuple(no_cell.cell_heights_flat.shape) == (1, 8)
+
+
+def test_sharded_accessors_equal_jax(scene):
+    """`heights`, `normals_packed` and `normals` of a sharded mosaic join
+    the bands in row order, padded rows included (poisoned heights, zero
+    words), as JAX's read its sharded arrays: bit for bit; the host
+    bookkeeping (`valid`, `cell_tile`, `tile_rot`) of each package's own
+    build passes through `shard_mosaic` unchanged, equal to JAX's."""
+    js, ps, pm = scene["js", 500_000], scene["ps", 500_000], scene["pm"]
+    assert ps.shape == js.shape and ps.shape[0] > pm.shape[0]
+    np.testing.assert_array_equal(_bits(ps.heights.numpy()), _bits(js.heights))
+    np.testing.assert_array_equal(ps.heights[: pm.shape[0]].numpy(), pm.heights.numpy())
+    assert (ps.heights[pm.shape[0]:] == POISON_HEIGHT).all()
+    packed = ps.normals_packed
+    assert packed.dtype == torch.uint32 and packed.shape == ps.shape
+    np.testing.assert_array_equal(packed.numpy(), np.asarray(js.normals_packed))
+    assert not packed[pm.shape[0]:].view(torch.int32).any()
+    np.testing.assert_array_equal(_bits(ps.normals.numpy()), _bits(js.normals))
+
+    tile = make_tile(49, 20, n=65, span_deg=0.05)
+    jm = jax_build_mosaic([tile], on_device=True)
+    tr = tile.transform
+    own = build_mosaic([TerrainTile(GeoLocation.from_coord(49, 20), tile.heights,
+                                    CoordinateTransform(tr.raster_point, tr.model_point, tr.pixel_scale))],
+                       device="cpu")
+    js = jsm.shard_mosaic(jm, _jax_mesh(), size_threshold=500_000)
+    ps = shard_mosaic(own, _port_mesh(), size_threshold=500_000)
+    for name in ("valid", "cell_tile", "tile_rot"):
+        np.testing.assert_array_equal(np.asarray(getattr(ps, name)), np.asarray(getattr(js, name)), err_msg=name)
 
 
 def _windows_equal(a, b):

@@ -62,3 +62,27 @@ def build_dir(package_dir: Path = PACKAGE_DIR) -> Path:
     if not os.path.isabs(cache):
         cache = os.path.join(os.path.expanduser("~"), ".cache")
     return Path(cache) / "topo_renderer_tpu_torch"
+
+
+# The public names of the JAX package's top level. Imported after
+# `resolve_device` and `build_dir`, which submodules import from the package.
+from topo_renderer_tpu_torch.config import Settings  # noqa: E402
+from topo_renderer_tpu_torch.geo import (  # noqa: E402
+    GeoCoord,
+    GeoLocation,
+    Latitude,
+    LatitudeDirection,
+    Longitude,
+    LongitudeDirection,
+)
+
+__all__ = [
+    "GeoCoord",
+    "GeoLocation",
+    "Latitude",
+    "LatitudeDirection",
+    "Longitude",
+    "LongitudeDirection",
+    "Settings",
+    "__version__",
+]

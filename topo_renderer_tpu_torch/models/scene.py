@@ -46,14 +46,16 @@ def pack_normals(normals_world: np.ndarray) -> np.ndarray:
     return enc[..., 0] | (enc[..., 1] << 10) | (enc[..., 2] << 20)
 
 
-def unpack_normals(packed: torch.Tensor):
-    """Packed words (int32, or float32 carrying the bits) -> three decoded
-    float planes."""
-    if packed.dtype == torch.float32:
+def unpack_normals(packed: torch.Tensor, scale=1023.0):
+    """Packed words (int32, or uint32 or float32 carrying the bits) -> three
+    decoded float planes. CUDA divides by a host scalar as a multiply by its
+    reciprocal; ``scale`` as a tensor on ``packed``'s device gives the
+    correctly rounded quotient there, as JAX's decode is."""
+    if packed.dtype in (torch.float32, torch.uint32):
         packed = packed.view(torch.int32)
-    nx = 2.0 * ((packed & 0x3FF).to(torch.float32) / 1023.0) - 1.0
-    ny = 2.0 * (((packed >> 10) & 0x3FF).to(torch.float32) / 1023.0) - 1.0
-    nz = 2.0 * (((packed >> 20) & 0x3FF).to(torch.float32) / 1023.0) - 1.0
+    nx = 2.0 * ((packed & 0x3FF).to(torch.float32) / scale) - 1.0
+    ny = 2.0 * (((packed >> 10) & 0x3FF).to(torch.float32) / scale) - 1.0
+    nz = 2.0 * (((packed >> 20) & 0x3FF).to(torch.float32) / scale) - 1.0
     return nx, ny, nz
 
 
@@ -128,9 +130,45 @@ class TerrainMosaic:
         cell = self.cell_heights_flat
         return (cell[0] if isinstance(cell, tuple) else cell).shape[-1]
 
+    def _rows(self, leaf):
+        """A level-0 table whole: a sharded mosaic's bands joined in row
+        order on the lead device, their padded rows included, as the JAX
+        package's sharded arrays read."""
+        if isinstance(leaf, tuple):
+            return torch.cat([band.to(self.device) for band in leaf])
+        return leaf
+
+    # Accessors of the JAX package's mosaic; no render path reads them.
     @property
     def heights(self):
-        return self.heights_flat.reshape(self.shape)
+        """f32[Hm, Wm]."""
+        return self._rows(self.heights_flat).reshape(self.shape)
+
+    @property
+    def normals_packed(self):
+        """The packed normal words, uint32[Hm, Wm]."""
+        words = self._rows(self.attr_packed_flat)[:, 1].view(torch.int32).contiguous()
+        return words.view(torch.uint32).reshape(self.shape)
+
+    @property
+    def normals(self):
+        """Decoded world-space normals, f32[Hm, Wm, 3], equal to JAX's decode
+        on either device."""
+        packed = self.normals_packed
+        scale = torch.full((), 1023.0, dtype=torch.float32, device=packed.device)
+        return torch.stack(unpack_normals(packed, scale), dim=-1)
+
+    @property
+    def valid(self):
+        return self.host.valid
+
+    @property
+    def cell_tile(self):
+        return self.host.cell_tile
+
+    @property
+    def tile_rot(self):
+        return self.host.tile_rot
 
 
 # The mosaic's tensor fields: what `mosaic_from_arrays` carries across.

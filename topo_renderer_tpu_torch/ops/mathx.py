@@ -37,18 +37,23 @@ def norm(v: torch.Tensor) -> torch.Tensor:
     return torch.sqrt(acc)
 
 
-def _fused_norm(v):
-    """``jnp.linalg.norm`` of a vector as its own XLA-CPU program computes
-    it: a chain of fused multiply-adds of the squares in index order."""
+def _fused_norm(v, axis=-1):
+    """``jnp.linalg.norm(v, axis=axis, keepdims=True)`` as its own XLA-CPU
+    program computes it: a chain of fused multiply-adds of the squares in
+    index order along ``axis``, then a correctly rounded square root. Torch's
+    float32 ``sqrt`` is not correctly rounded (on the CPU about one input in
+    160 is an ulp off), so the root is taken in float64 and rounded once to
+    float32, which gives the correctly rounded float32 root."""
+    v = v.movedim(axis, -1)
     acc = v[..., 0] * v[..., 0]
     v64 = v.double()
     for i in range(1, v.shape[-1]):
         acc = (acc.double() + v64[..., i] * v64[..., i]).float()
-    return torch.sqrt(acc)
+    return torch.sqrt(acc.double()).float().unsqueeze(-1).movedim(-1, axis)
 
 
-def normalize(v, eps=0.0):
-    n = _fused_norm(v)[..., None]
+def normalize(v, axis=-1, eps=0.0):
+    n = _fused_norm(v, axis)
     return v / torch.clamp(n, min=eps) if eps else v / n
 
 
